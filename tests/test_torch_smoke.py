@@ -1,0 +1,114 @@
+"""The port's smoke script and import rules, checked on the CPU.
+
+* `chip_smoke.py --rehearse-cpu` runs phases 3-5 at a tiny size with the
+  plain versions and exits 0.
+* Without a card, and in a directory that holds `chip_smoke.py` and
+  nothing else of the repo, it exits non-zero and prints no result.
+* Neither the port nor the script imports JAX, the JAX package, PIL or cv2
+  at module level, or `torch.utils.cpp_extension`.
+* On a card (marker `gpu`), the ICP-NN kernel equals its plain version bit
+  for bit. This file imports no JAX, so on a machine without it the test
+  runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
+  tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
+"""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu3drec_torch.ops import icp_nn
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+PORT = os.path.join(ROOT, "tpu3drec_torch")
+
+
+def _run(args, cwd):
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_rehearsal_on_cpu():
+    p = _run([SMOKE, "--rehearse-cpu"], ROOT)
+    assert p.returncode == 0, p.stdout + p.stderr
+    lines = p.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
+    kernels = json.loads(lines[-2])["kernels"]
+    assert [k["name"] for k in kernels] == ["icp_nn"]
+    for phase in ("kernel_vs_plain", "fusion", "icp"):
+        assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
+
+
+def test_no_card_is_an_error():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    p = _run([SMOKE], ROOT)
+    assert p.returncode != 0
+    assert '"ok": true' not in p.stdout
+
+
+def test_script_alone_fails(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    p = _run(["chip_smoke.py"], str(tmp_path))
+    assert p.returncode != 0
+    assert '"ok": true' not in p.stdout
+
+
+_FORBIDDEN = [
+    (re.compile(r"^\s*(import|from)\s+jax\b", re.M), "imports jax"),
+    (re.compile(r"^\s*(import|from)\s+tpu3drec(?!_torch)\b", re.M), "imports the JAX package"),
+    (re.compile(r"\btpu3drec\."), "names a tpu3drec. module"),
+    (re.compile(r"^(import|from)\s+(PIL|cv2)\b", re.M), "imports PIL/cv2 at module level"),
+    (re.compile(r"cpp_extension"), "uses torch.utils.cpp_extension"),
+]
+
+
+def _sources():
+    out = [SMOKE]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    return out
+
+
+@pytest.mark.parametrize("rule", range(len(_FORBIDDEN)))
+def test_port_import_rules(rule):
+    pattern, what = _FORBIDDEN[rule]
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        if path.endswith(".py"):
+            # code only: the docstrings and comments name the JAX files they port
+            text = "\n".join(line for line in text.splitlines()
+                             if not line.lstrip().startswith("#"))
+            text = re.sub(r'"""[\s\S]*?"""', "", text)
+        else:
+            text = re.sub(r"//.*", "", text)
+        hits += [os.path.relpath(path, ROOT) for _ in pattern.finditer(text)]
+    assert not hits, f"{what}: {sorted(set(hits))}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nr", [(1, 1), (1000, 3001), (777, 500), (76_800, 76_800)])
+def test_kernel_matches_plain_on_the_card(nq, nr):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.normal(size=(nq, 3)), dtype=torch.float32, device="cuda")
+    r = torch.as_tensor(rng.normal(size=(nr, 3)), dtype=torch.float32, device="cuda")
+    before = icp_nn.launches
+    idx, d2 = icp_nn.nearest_neighbors_cuda(q, r)
+    pidx, pd2 = icp_nn.nearest_neighbors_plain(q, r)
+    torch.cuda.synchronize()
+    assert icp_nn.launches == before + 1
+    # the kernel rounds each product and sum on its own, like the plain version
+    assert torch.equal(d2, pd2)
+    assert torch.equal(idx, pidx)

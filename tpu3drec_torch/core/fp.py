@@ -1,0 +1,34 @@
+"""float32 arithmetic with the roundings the JAX package gets on the CPU.
+
+XLA's CPU compiler contracts ``a*b + c`` into fused multiply-adds and
+takes correctly rounded square roots. Written as separate PyTorch ops, the
+same expressions round differently in the last bit, which is enough to
+flip a ``%.4f`` digit in an exported PLY. These helpers give the port the
+same float32 results, on the CPU and on the card alike.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a*b + c with one rounding. The product of two float32 values is exact
+    in float64, so only the final sum rounds (twice, float64 then float32,
+    which agrees with a true fma except on exact float32 half-way cases)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (through float64, whose
+    rounding is innocuous for sqrt); PyTorch's CPU kernel is not always."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis, accumulated in order with fused
+    multiply-adds."""
+    acc = x[..., 0] * x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = fma(x[..., i], x[..., i], acc)
+    return acc

@@ -1,0 +1,126 @@
+"""Command-line interface of the port (port of `tpu3drec/pipelines/cli.py`,
+the map-building subcommands), with the same flags and defaults:
+
+  rgbd       depth PNGs + pose txt -> world PLY/.bt
+  icp        estimate the scale-correcting 4x4 T between two clouds
+  icp-fuse   two clouds + T_data.txt -> merged PLY
+  ply2bt     PLY -> octomap .bt
+
+Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
+on the card; ``--device cpu`` asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _cmd_rgbd(args):
+    from tpu3drec_torch.pipelines import rgbd
+    from tpu3drec_torch.utils.config import RGBDPipelineConfig, from_dict
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = from_dict(RGBDPipelineConfig, json.load(f))
+    else:
+        cfg = RGBDPipelineConfig()
+    if args.poses:
+        cfg.pose_file = args.poses
+    if args.depth_dir:
+        cfg.depth_dir = args.depth_dir
+    if args.rgb_dir:
+        cfg.rgb_dir = args.rgb_dir
+    if args.out_ply:
+        cfg.out_ply = args.out_ply
+    if args.out_bt:
+        cfg.out_bt = args.out_bt
+    res = rgbd.run(cfg, device=args.device)
+    print(f"fused {res.n_frames} frames -> {res.n_points} points, "
+          f"{res.n_voxels} voxels in {res.seconds:.2f}s")
+
+
+def _cmd_icp_fuse(args):
+    from tpu3drec_torch.pipelines import icp_fusion
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    a, _ = read_ply(args.cloud_a)
+    b, _ = read_ply(args.cloud_b)
+    n = icp_fusion.run(a, b, args.T, args.out, device=args.device)
+    print(f"merged {n} points -> {args.out}")
+
+
+def _cmd_icp(args):
+    from tpu3drec_torch.sfm.icp import icp_scale_correction
+    from tpu3drec_torch.utils.plyio import read_ply
+    from tpu3drec_torch.utils.poseio import write_T_txt
+
+    a, _ = read_ply(args.cloud_a)
+    b, _ = read_ply(args.cloud_b)
+    T = icp_scale_correction(a, b, iters=args.iters, device=args.device).cpu().numpy()
+    write_T_txt(args.out, T)
+    print(f"T ->\n{T}")
+
+
+def ply2bt(ply: str, out: str, res: float = 0.1, max_points: int = 0, device=None):
+    """PLY -> octomap .bt. Returns (n_points, n_voxels, n_nodes)."""
+    from tpu3drec_torch.mapping.btio import write_bt
+    from tpu3drec_torch.mapping.voxel import dedup_voxels_host
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    pts, _ = read_ply(ply)
+    if max_points and pts.shape[0] > max_points:
+        pts = pts[:max_points]  # the reference capped at 5.4M points
+    keys = dedup_voxels_host(pts, res, device=device)
+    return pts.shape[0], keys.shape[0], write_bt(out, keys, res)
+
+
+def _cmd_ply2bt(args):
+    n_pts, n_vox, n = ply2bt(args.ply, args.out, args.res, args.max_points,
+                             device=args.device)
+    print(f"{n_pts} points -> {n_vox} voxels, {n} nodes -> {args.out}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="tpu3drec_torch")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; pass cpu for the CPU)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    q = sub.add_parser("rgbd", help="depth + poses -> fused map")
+    q.add_argument("--config")
+    q.add_argument("--poses")
+    q.add_argument("--depth-dir", dest="depth_dir")
+    q.add_argument("--rgb-dir", dest="rgb_dir", help="color the cloud from RGB frames")
+    q.add_argument("--out-ply", dest="out_ply")
+    q.add_argument("--out-bt", dest="out_bt")
+    q.set_defaults(fn=_cmd_rgbd)
+
+    q = sub.add_parser("icp-fuse", help="merge cloud B via T_data.txt")
+    q.add_argument("cloud_a")
+    q.add_argument("cloud_b")
+    q.add_argument("--T", required=True)
+    q.add_argument("--out", required=True)
+    q.set_defaults(fn=_cmd_icp_fuse)
+
+    q = sub.add_parser("icp", help="estimate scale-correcting T on device")
+    q.add_argument("cloud_a")
+    q.add_argument("cloud_b")
+    q.add_argument("--iters", type=int, default=50)
+    q.add_argument("--out", required=True)
+    q.set_defaults(fn=_cmd_icp)
+
+    q = sub.add_parser("ply2bt", help="PLY -> octomap .bt")
+    q.add_argument("ply")
+    q.add_argument("--res", type=float, default=0.1)
+    q.add_argument("--out", required=True)
+    q.add_argument("--max-points", dest="max_points", type=int, default=0)
+    q.set_defaults(fn=_cmd_ply2bt)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
