@@ -2,31 +2,47 @@
 """Smoke run of the PyTorch/CUDA port (`tpu3drec_torch/`) on one card.
 
     python3 chip_smoke.py                 # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-5 at a tiny size on the CPU
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-8 at a tiny size on the CPU
 
 Phases, one flushed line each with its wall seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit
-  2. build: every kernel of the path, from the sources in this checkout
-     (`tpu3drec_torch/ops/csrc/*.cu`), one nvcc process per source
-  3. kernel vs plain: the ICP nearest-neighbour kernel against its plain
-     PyTorch version at ragged shapes, with exact ties, and at the slice's
-     shape (one 480x640 frame at stride 2 against another); times of the
-     kernel, the plain version and one library call, and the kernel's bound
+  2. build: every kernel of the port, from the sources in this checkout
+     (`tpu3drec_torch/ops/csrc/*.cu`), one nvcc process per source, in parallel
+  3. ICP-NN kernel vs plain: the ICP nearest-neighbour kernel against its
+     plain PyTorch version at ragged shapes, with exact ties, and at the
+     slice's shape (one 480x640 frame at stride 2 against another); times of
+     the kernel, the plain version and one library call, and the kernel's bound
   4. fusion: 16 frames of 480x640 depth of a seeded corridor scene with the
      reference camera -> world points -> binary PLY + .bt at 0.1 m
   5. ICP scale correction: a 76,800-point cloud from the fused map against
      a copy under a known similarity, through the CLI: `icp` (50
      iterations), `icp-fuse`, `ply2bt`
-Launch counts are zeroed just before phase 4 and read just after phase 5.
-The last lines are the kernels as one JSON object, nvidia-smi's line and
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero before
-that. Inputs come from numpy's default_rng(--seed); files go to a
-temporary directory, kernels to build/.
+  6. matcher kernel vs plain: ragged, tied, all-invalid and Kb > 2048 cases,
+     phase 8's shape (30 pairs x 512 x 512, padded rows invalid) and
+     P=8 x K=4096 x D=128 in both directions, bit for bit; times of the
+     kernel, the plain version, a bmm+topk yardstick, and the bound
+  7. BA-blocks kernel vs plain at O = 1, 511, 513, 65,536, bit for bit; then
+     `ba_solve(use_pallas_blocks=True)` (the kernel's path) against the jacfwd
+     path on a 64-camera, 8192-landmark, 65,536-observation problem, with
+     every launch of the block-path solve held against the plain version on
+     the inputs the solve gave it
+  8. SfM: 12 seeded frames of 480x640 with the reference camera through
+     `sfm_pipeline.run` (512 keypoints, overlap 3) -> pose txt + sparse PLY;
+     registered frames, ATE after similarity alignment, time per stage; the
+     matcher's launches on the path held against the plain version on the
+     descriptors and valid masks the path gave them, and timed at that shape
+Each kernel's launch count is zeroed just before the path that runs it
+(phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
+phase 8 for matcher) and read just after. The last lines are the kernels as
+one JSON object, nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
+failed check exits non-zero before that. Inputs come from numpy's
+default_rng(--seed); files go to a temporary directory, kernels to build/.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -112,6 +128,51 @@ def time_ms(fn, dev, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Passes every call of ``module.name`` through unchanged and keeps
+    clones of its arguments and its result, so that what the main path's
+    own launches returned can be held against the plain version on the
+    inputs the path gave them."""
+    fn, calls = getattr(module, name), []
+
+    def wrapped(*args):
+        out = fn(*args)
+        calls.append((_clone(args), _clone(out)))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_against_plain(calls, plain, name: str) -> float:
+    """Each recorded call's result against ``plain`` on the same arguments,
+    bit for bit; returns the largest absolute difference (0.0)."""
+    check(len(calls) > 0, f"{name}: the main path made no call")
+    max_err = 0.0
+    for i, (args, out) in enumerate(calls):
+        ref = plain(*args)
+        keys = list(ref) if isinstance(ref, dict) else range(len(ref))
+        for k in keys:
+            err = float((out[k].double() - ref[k].double()).abs().max()) if out[k].numel() else 0.0
+            check(torch.equal(out[k], ref[k]), f"{name} call {i} output {k}: max err {err}")
+            max_err = max(max_err, err)
+    return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +322,357 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the matcher kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _unit_rows(rng, *shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _matcher_bound(P, Ka, Kb, D):
+    """(ms, what bounds it): the fp32 operations of the products over the
+    card's peak, or the bytes (descriptors and mask in, index and two
+    scores out) over HBM, whichever is larger."""
+    t_ops = 2 * P * Ka * Kb * D / FP32_FLOPS
+    t_bytes = (((P * Ka + P * Kb) * D + P * Kb) * 4 + P * Ka * 12) / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _matcher_library_ms(a, b, dev) -> float:
+    """Yardstick only: full-fp32 bmm then topk(2), which stores the
+    (P, Ka, Kb) scores."""
+    from tpu3drec_torch.core import fp
+
+    def library():
+        with fp.ieee_fp32():
+            return torch.bmm(a, b.transpose(1, 2)).topk(2, dim=-1)
+
+    ms = time_ms(library, dev, reps=5)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_matcher(dev, rng, gpu: bool):
+    from tpu3drec_torch.ops import matcher
+
+    def kernel(a, b, v):
+        if gpu:
+            return matcher.topk2_scores_batched_cuda(a, b, v)
+        return matcher.topk2_scores_batched_plain(a, b, v, tile_b=7)  # another tiling
+
+    D = 128
+    P, K = (8, 4096) if gpu else (2, 300)
+    base = _unit_rows(rng, 50, D)
+    ties_b = np.concatenate([base, base[::-1], base])          # every score tied 3x
+    valid_2049 = rng.random(2049) >= 0.1
+    a_big = _unit_rows(rng, P, K, D)
+    b_big = _unit_rows(rng, P, K, D)
+    # phase 8's shape: 30 sequential pairs of 512 keypoints, the detector's
+    # padding rows invalid at the end of each frame
+    Pm, Km = (30, 512) if gpu else (30, 256)
+    valid_m = np.arange(Km)[None] < rng.integers(Km // 2, Km + 1, (Pm, 1))
+    cases = {
+        "1x1": (_unit_rows(rng, 1, 1, D), _unit_rows(rng, 1, 1, D), np.ones((1, 1), bool)),
+        "300x2049": (_unit_rows(rng, 1, 300, D), _unit_rows(rng, 1, 2049, D), valid_2049[None]),
+        "ties": (np.concatenate([base, base[:7]])[None], ties_b[None],
+                 np.ones((1, ties_b.shape[0]), bool)),
+        "all_invalid": (_unit_rows(rng, 1, 77, D), _unit_rows(rng, 1, 130, D),
+                        np.zeros((1, 130), bool)),
+        "main_path_shape": (_unit_rows(rng, Pm, Km, D), _unit_rows(rng, Pm, Km, D), valid_m),
+        "batched_ab": (a_big, b_big, np.ones((P, K), bool)),
+        "batched_ba": (b_big, a_big, np.ones((P, K), bool)),
+    }
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    max_err = 0.0
+    for name, (a, b, v) in cases.items():
+        a, b, v = t(a), t(b), t(v)
+        bk, tk = kernel(a, b, v)
+        bp, tp = matcher.topk2_scores_batched_plain(a, b, v)
+        sync(dev)
+        err = float((tk - tp).abs().max())
+        check(torch.equal(bk, bp) and torch.equal(tk, tp),
+              f"matcher {name}: {int((bk != bp).sum())} indices differ, max score err {err}")
+        max_err = max(max_err, err)
+        log(f"  matcher {name}: {tuple(a.shape)} x {tuple(b.shape)} max_abs_err={err} "
+            f"near_tie_swaps=0")
+    # one case through the single-pair entry point
+    a, b, v = t(cases["300x2049"][0][0]), t(cases["300x2049"][1][0]), t(valid_2049)
+    bk, tk = matcher.topk2_scores(a, b, v)
+    bp, tp = matcher.topk2_scores_plain(a, b, v)
+    sync(dev)
+    check(torch.equal(bk, bp) and torch.equal(tk, tp), "topk2_scores differs from its plain version")
+    log("  matcher topk2_scores 300x2049: equal")
+
+    a, b, v = t(a_big), t(b_big), t(cases["batched_ab"][2])
+    reps = 20 if gpu else 1
+    kernel_ms = time_ms(lambda: kernel(a, b, v), dev, reps=reps, warmup=2 if gpu else 0)
+    plain_ms = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
+                       reps=3 if gpu else 1, warmup=1 if gpu else 0)
+    library_ms = _matcher_library_ms(a, b, dev) if gpu else None
+    bound_ms, bound_by = _matcher_bound(P, K, K, D)
+    return {
+        "name": "matcher",
+        "route": "cuda",
+        "source": "tpu3drec_torch/ops/csrc/matcher.cu",
+        # the batched kernel is the one on the main path; the same
+        # __global__ (P = 1) also replaces the single-pair kernel
+        "replaces": "tpu3drec/ops/matcher.py:151",
+        "also_replaces": "tpu3drec/ops/matcher.py:68",
+        "shape": [P, K, K, D],
+        "max_abs_err": max_err,
+        "near_tie_swaps": 0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the BA-blocks kernel against its plain version, then ba_solve
+# ---------------------------------------------------------------------------
+
+BA_FLOATS_IN, BA_FLOATS_OUT = 15, 92
+
+
+def _ba_inputs(rng, O, dev):
+    from tpu3drec_torch.core.se3 import axis_angle_to_matrix
+
+    R = axis_angle_to_matrix(torch.as_tensor(rng.normal(size=(O, 3)) * 0.3, dtype=torch.float32))
+    Xc = rng.uniform([-2, -2, 3], [2, 2, 12], size=(O, 3)).astype(np.float32)
+    if O > 2:
+        Xc[0] = [1e-12, -1e-12, 0.0]  # the z clamp, with finite blocks
+    uv = rng.uniform([0, 0], [640, 480], size=(O, 2)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, size=O).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev).contiguous()  # noqa: E731
+    return t(Xc), t(R), t(uv), t(w)
+
+
+def _ba_problem(rng, dev, F, L, O):
+    """The BA benchmark problem of the JAX package (bench.py): consistent
+    geometry, observations = projections + 1 px noise, cameras perturbed."""
+    from tpu3drec_torch.sfm import ba
+
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    cam_params = rng.normal(0, 0.05, (F, 6)).astype(np.float32)
+    cam_params[:, 5] += np.linspace(0, 5, F).astype(np.float32)
+    points = rng.uniform([-5, -5, 8], [5, 5, 30], (L, 3)).astype(np.float32)
+    cam_idx = rng.integers(0, F, O)
+    pt_idx = rng.integers(0, L, O)
+    clean = ba.BAProblem.from_numpy(cam_params, points, cam_idx, pt_idx, np.zeros((O, 2)),
+                                    np.ones(O), K, device=dev)
+    uv = ba.residuals(clean).cpu().numpy() + rng.normal(0, 1.0, (O, 2)).astype(np.float32)
+    start = cam_params + rng.normal(0, 0.01, (F, 6)).astype(np.float32)
+    return ba.BAProblem.from_numpy(start, points, cam_idx, pt_idx, uv, np.ones(O), K,
+                                   device=dev)
+
+
+def phase_ba_blocks(dev, rng, gpu: bool):
+    from tpu3drec_torch.ops import ba_blocks
+
+    intr = (500.0, 510.0, 320.0, 240.0)
+    sizes = (1, 511, 513, 65_536) if gpu else (1, 511, 513, 2_048)
+    max_err = 0.0
+    for O in sizes:
+        ins = _ba_inputs(rng, O, dev)
+        out_k = (ba_blocks.ba_blocks_cuda if gpu else ba_blocks.ba_blocks_plain)(*ins, intr)
+        out_p = ba_blocks.ba_blocks_plain(*ins, intr)
+        sync(dev)
+        for key in out_p:
+            err = float((out_k[key] - out_p[key]).abs().max())
+            check(torch.equal(out_k[key], out_p[key]), f"ba_blocks O={O} {key}: max err {err}")
+            max_err = max(max_err, err)
+        log(f"  ba_blocks O={O}: 8 outputs bit-equal")
+    reps = 50 if gpu else 1
+    kern = ba_blocks.ba_blocks_cuda if gpu else ba_blocks.ba_blocks_plain
+    kernel_ms = time_ms(lambda: kern(*ins, intr), dev, reps=reps, warmup=3 if gpu else 0)
+    plain_ms = time_ms(lambda: ba_blocks.ba_blocks_plain(*ins, intr), dev, reps=5 if gpu else 1,
+                       warmup=1 if gpu else 0)
+    return {
+        "name": "ba_blocks",
+        "route": "cuda",
+        "source": "tpu3drec_torch/ops/csrc/ba_blocks.cu",
+        "replaces": "tpu3drec/ops/ba_blocks.py:32",
+        "shape": [sizes[-1]],
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": (BA_FLOATS_IN + BA_FLOATS_OUT) * 4 * sizes[-1] / HBM_BYTES_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes these blocks
+    }
+
+
+def ba_solve_paths(dev, rng, gpu: bool, ph):
+    """The block path (the kernel's main path) against the jacfwd path."""
+    from tpu3drec_torch.ops import ba_blocks
+    from tpu3drec_torch.sfm import ba
+
+    F, L, O = (64, 8192, 65_536) if gpu else (8, 256, 2_048)
+    prob = _ba_problem(rng, dev, F, L, O)
+    for blocks in (False, True):  # warm-up: cuSOLVER, the kernel's library
+        ba.ba_solve(prob, max_lm_iters=1, cg_iters=10, use_pallas_blocks=blocks)
+    sync(dev)
+    out = {}
+    for blocks in (False, True):
+        if blocks:
+            ba_blocks.reset_launches()
+        with recording(ba, "ba_blocks") as calls:
+            t0 = time.perf_counter()
+            res = ba.ba_solve(prob, max_lm_iters=12, cg_iters=10, use_pallas_blocks=blocks)
+            sync(dev)
+            secs = time.perf_counter() - t0
+        launches = ba_blocks.launches if blocks else None
+        if blocks:  # every launch of the solve, on the inputs it was given
+            main_err = hold_against_plain(calls, ba_blocks.ba_blocks_plain, "ba_blocks (solve)")
+        r = ba.residuals(prob._replace(cam_params=res.cam_params, points=res.points))
+        out[blocks] = dict(init=float(res.initial_cost), final=float(res.final_cost),
+                           iters=res.n_iters, s_per_iter=secs / res.n_iters,
+                           mean_px=float(r.abs().mean()), launches=launches)
+    ref, blk = out[False], out[True]
+    if gpu:
+        check(blk["launches"] == blk["iters"],
+              f"ba_blocks launched {blk['launches']} times in {blk['iters']} LM iterations")
+    for name, o in (("jacfwd", ref), ("blocks", blk)):
+        check(o["final"] < o["init"], f"{name}: final cost {o['final']} >= initial {o['init']}")
+    check(blk["mean_px"] < max(10 * ref["mean_px"], 1e-3),
+          f"block path mean residual {blk['mean_px']} vs jacfwd {ref['mean_px']}")
+    ph.info.update(problem=f"F={F},L={L},O={O}",
+                   jacfwd_s_per_iter=round(ref["s_per_iter"], 4), jacfwd_iters=ref["iters"],
+                   blocks_s_per_iter=round(blk["s_per_iter"], 4), blocks_iters=blk["iters"],
+                   jacfwd_mean_px=round(ref["mean_px"], 4),
+                   blocks_mean_px=round(blk["mean_px"], 4),
+                   costs=f"{ref['init']:.1f}->{ref['final']:.1f}|{blk['final']:.1f}",
+                   solve_launches_vs_plain=f"{len(calls)} bit-equal")
+    return blk["launches"], main_err
+
+
+# ---------------------------------------------------------------------------
+# phase 8: SfM through sfm_pipeline.run
+# ---------------------------------------------------------------------------
+
+
+def make_sfm_scene(rng, frames: int, h: int, w: int, f: float):
+    """Images (F, H, W) in [0, 1] of textured blob constellations (a centre
+    dot and three satellites at fixed 3D offsets, amplitudes of their own)
+    seen by a camera moving sideways and forward with a slow yaw, and the
+    ground-truth world->camera poses. Each dot is splatted only inside its
+    own 4-sigma patch."""
+    gx, gy = np.meshgrid(np.linspace(-7.0, 9.5, 22), np.linspace(-3.6, 3.6, 20))
+    n = gx.size
+    X = np.stack([gx.ravel(), gy.ravel(), rng.uniform(9.0, 17.0, n)], -1)
+    X[:, :2] += rng.uniform(-0.25, 0.25, (n, 2))
+    sats = rng.uniform(-0.14, 0.14, (n, 3, 3))
+    amps = rng.uniform(0.4, 1.0, (n, 4))
+    P = np.concatenate([X] + [X + sats[:, s] for s in range(3)])
+    A = np.concatenate([amps[:, s] for s in range(4)])
+    sigma = 2.2 * f / FX
+    rad = int(np.ceil(4 * sigma))
+    offs = np.arange(-rad, rad + 1)
+    poses, images = [], np.zeros((frames, h, w), np.float32)
+    for k in range(frames):
+        yaw = 0.02 * k
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+        C = np.array([0.4 * k, 0.03 * k, 0.25 * k], np.float32)
+        t = (-R @ C).astype(np.float32)
+        poses.append((R, t))
+        Xc = P @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:3] * f + [w / 2, h / 2]
+        for (u, v), a, z in zip(uv, A, Xc[:, 2]):
+            if z < 0.5 or not (-rad < u < w + rad and -rad < v < h + rad):
+                continue
+            xs = np.round(u).astype(int) + offs
+            ys = np.round(v).astype(int) + offs
+            xs, ys = xs[(xs >= 0) & (xs < w)], ys[(ys >= 0) & (ys < h)]
+            if xs.size == 0 or ys.size == 0:
+                continue
+            g = a * np.exp(-((xs[None] - u) ** 2 + (ys[:, None] - v) ** 2) / (2 * sigma ** 2))
+            images[k, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] += g
+    return np.clip(images, 0, 1), poses, n
+
+
+def _ate(est, gt):
+    """RMS error of camera centres after a similarity (Umeyama) alignment."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, S, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / len(est))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    s = np.trace(np.diag(S) @ D) / ((est - mu_e) ** 2).sum(1).mean()
+    aligned = s * (est - mu_e) @ (U @ D @ Vt).T + mu_g
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+def phase_sfm(dev, rng, gpu: bool, tmp: str, ph):
+    from tpu3drec_torch.core.quaternion import quat_xyzw_to_matrix
+    from tpu3drec_torch.ops import matcher
+    from tpu3drec_torch.pipelines import sfm_pipeline
+    from tpu3drec_torch.utils.plyio import read_ply
+    from tpu3drec_torch.utils.poseio import read_pose_txt
+
+    frames, h, w = (12, H, W) if gpu else (12, H // 2, W // 2)
+    f = FX if gpu else FX / 2
+    t0 = time.perf_counter()
+    images, gt, n_landmarks = make_sfm_scene(rng, frames, h, w, f)
+    render_s = time.perf_counter() - t0
+    K = np.array([[f, 0, w / 2], [0, f * FY / FX, h / 2], [0, 0, 1]], np.float32)
+    cfg = sfm_pipeline.SfmPipelineConfig(
+        max_keypoints=512 if gpu else 256, overlap=3,
+        out_poses=os.path.join(tmp, "sfm_poses.txt"),
+        out_sparse_ply=os.path.join(tmp, "sfm_sparse.ply"))
+    matcher.reset_launches()
+    with recording(matcher, "topk2_scores_batched") as calls:
+        t0 = time.perf_counter()
+        rec = sfm_pipeline.run(images, K, cfg, device=dev)
+        run_s = time.perf_counter() - t0
+    launches = matcher.launches
+    if gpu:
+        check(launches >= 2, f"the matcher kernel was launched {launches} times")
+    # what the path's own launches returned, against the plain version on
+    # the descriptors and padded valid masks the path gave them; then the
+    # kernel's times at that shape
+    main = {"max_abs_err": hold_against_plain(calls, matcher.topk2_scores_batched_plain,
+                                              "matcher (sfm)")}
+    a, b, v = calls[0][0]
+    Pm, Km, D = a.shape
+    kern = matcher.topk2_scores_batched_cuda if gpu else matcher.topk2_scores_batched_plain
+    main["shape"] = [Pm, Km, b.shape[1], D]
+    main["ms"] = time_ms(lambda: kern(a, b, v), dev, reps=20 if gpu else 1,
+                         warmup=2 if gpu else 0)
+    main["plain_ms"] = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
+                               reps=3 if gpu else 1, warmup=1 if gpu else 0)
+    main["bound_ms"], main["bound_by"] = _matcher_bound(Pm, Km, b.shape[1], D)
+    main["library_ms"] = _matcher_library_ms(a, b, dev) if gpu else None
+    records = read_pose_txt(cfg.out_poses)
+    sparse, _ = read_ply(cfg.out_sparse_ply)
+    reg = rec.registered_frames()
+    check([r.frame_id for r in records] == reg, "pose txt rows differ from the registered frames")
+    check(sparse.shape == (len(rec.points), 3) and np.isfinite(sparse).all(),
+          f"sparse PLY holds {sparse.shape}")
+    need = frames - 2
+    check(len(reg) >= need, f"registered {len(reg)} of {frames} frames, need {need}")
+    est = []
+    for r in records:  # camera centres from the file as written
+        Rw = quat_xyzw_to_matrix(torch.as_tensor(r.q_xyzw)).numpy()
+        est.append(-Rw.T @ r.t)
+    est = np.stack(est)
+    gtc = np.stack([-gt[k][0].T @ gt[k][1] for k in reg]).astype(np.float64)
+    ate = _ate(est, gtc)
+    traj = float(np.linalg.norm(np.diff(gtc, axis=0), axis=1).sum())
+    check(ate < 0.05 * traj, f"ATE {ate} against a {traj} trajectory")
+    ph.info.update(frames=f"{len(reg)}/{frames}", size=f"{h}x{w}", landmarks=n_landmarks,
+                   sparse_points=sparse.shape[0], ate=round(ate, 4), traj=round(traj, 3),
+                   render_s=round(render_s, 2), run_s=round(run_s, 2),
+                   matcher_launches=launches,
+                   matcher_calls_vs_plain=f"{len(calls)} bit-equal at {main['shape']}",
+                   **{f"{k}_s": round(v, 3) for k, v in rec.seconds.items()})
+    return launches, main
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -268,7 +680,7 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-5 at a tiny size on the CPU with the plain versions")
+                    help="run phases 3-8 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     gpu = not args.rehearse_cpu
@@ -418,12 +830,36 @@ def main(argv=None) -> int:
             ph.info.update(points=n, icp_s=round(icp_s, 3), scale=scale, T_err=T_err,
                            merged_points=m_pts.shape[0], merged_voxels=keys.shape[0])
 
-    row["launches"] = icp_nn.launches
-    row["kernel_ms"] = row["ms"]
-    row["ok"] = True
-    if gpu:
-        check(row["launches"] > 0, "the main path never launched icp_nn")
-    log(json.dumps({"kernels": [row]}))
+        row["launches"] = icp_nn.launches  # read just after phases 4-5
+
+        # ---- phase 6: the matcher kernel against its plain version ---------
+        with Phase("matcher_vs_plain") as ph:
+            m_row = phase_matcher(dev, rng, gpu)
+            ph.info.update({k: m_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                 "library_ms", "max_abs_err")})
+
+        # ---- phase 7: BA blocks against plain, then the block-path solve ---
+        with Phase("ba_blocks_vs_plain") as ph:
+            b_row = phase_ba_blocks(dev, rng, gpu)
+            ph.info.update({k: b_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                 "max_abs_err")})
+        with Phase("ba_solve") as ph:
+            b_row["launches"], err = ba_solve_paths(dev, rng, gpu, ph)
+            b_row["max_abs_err"] = max(b_row["max_abs_err"], err)
+
+        # ---- phase 8: SfM through the pipeline -----------------------------
+        with Phase("sfm") as ph:
+            m_row["launches"], main = phase_sfm(dev, rng, gpu, tmp, ph)
+            m_row["max_abs_err"] = max(m_row["max_abs_err"], main.pop("max_abs_err"))
+            m_row["main_path"] = main
+
+    rows = [row, m_row, b_row]
+    for r in rows:
+        r["kernel_ms"] = r["ms"]
+        r["ok"] = True
+        if gpu:
+            check(r["launches"] > 0, f"the main path never launched {r['name']}")
+    log(json.dumps({"kernels": rows}))
     if not gpu:
         log(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0

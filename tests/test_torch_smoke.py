@@ -1,13 +1,13 @@
 """The port's smoke script and import rules, checked on the CPU.
 
-* `chip_smoke.py --rehearse-cpu` runs phases 3-5 at a tiny size with the
+* `chip_smoke.py --rehearse-cpu` runs phases 3-8 at a tiny size with the
   plain versions and exits 0.
 * Without a card, and in a directory that holds `chip_smoke.py` and
   nothing else of the repo, it exits non-zero and prints no result.
 * Neither the port nor the script imports JAX, the JAX package, PIL or cv2
   at module level, or `torch.utils.cpp_extension`.
-* On a card (marker `gpu`), the ICP-NN kernel equals its plain version bit
-  for bit. This file imports no JAX, so on a machine without it the test
+* On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
+  equal their plain versions bit for bit. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
   tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
 """
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu3drec_torch.ops import icp_nn
+from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
@@ -42,8 +42,13 @@ def test_rehearsal_on_cpu():
     lines = p.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in kernels] == ["icp_nn"]
-    for phase in ("kernel_vs_plain", "fusion", "icp"):
+    assert [k["name"] for k in kernels] == ["icp_nn", "matcher", "ba_blocks"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in kernels:
+        assert keys <= set(k), (k["name"], keys - set(k))
+    for phase in ("kernel_vs_plain", "fusion", "icp", "matcher_vs_plain",
+                  "ba_blocks_vs_plain", "ba_solve", "sfm"):
         assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
 
 
@@ -112,3 +117,57 @@ def test_kernel_matches_plain_on_the_card(nq, nr):
     # the kernel rounds each product and sum on its own, like the plain version
     assert torch.equal(d2, pd2)
     assert torch.equal(idx, pidx)
+
+
+def _unit(rng, *shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,ka,kb,d", [(1, 1, 1, 128), (1, 300, 2049, 128), (3, 129, 64, 32),
+                                       (30, 512, 512, 128), (8, 4096, 4096, 128)])
+def test_matcher_kernel_matches_plain_on_the_card(p, ka, kb, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(_unit(rng, p, ka, d), device="cuda")
+    b = torch.as_tensor(_unit(rng, p, kb, d), device="cuda")
+    v = torch.as_tensor(rng.random((p, kb)) >= 0.1, device="cuda")
+    v[0, :] = p == 1  # with several pairs, the first has no valid reference
+    before = matcher.launches
+    best, top2 = matcher.topk2_scores_batched(a, b, v)
+    pbest, ptop2 = matcher.topk2_scores_batched_plain(a, b, v)
+    torch.cuda.synchronize()
+    assert matcher.launches == before + 1
+    # the same summation order over d, each product and sum rounded alone
+    assert torch.equal(best, pbest)
+    assert torch.equal(top2, ptop2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 511, 513, 65_536])
+def test_ba_blocks_kernel_matches_plain_on_the_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(2)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")  # noqa: E731
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w_, x_, y_, z_ = q.T
+    R = np.stack([1 - 2 * (y_ * y_ + z_ * z_), 2 * (x_ * y_ - w_ * z_), 2 * (x_ * z_ + w_ * y_),
+                  2 * (x_ * y_ + w_ * z_), 1 - 2 * (x_ * x_ + z_ * z_), 2 * (y_ * z_ - w_ * x_),
+                  2 * (x_ * z_ - w_ * y_), 2 * (y_ * z_ + w_ * x_), 1 - 2 * (x_ * x_ + y_ * y_)],
+                 -1).reshape(n, 3, 3)
+    Xc = rng.uniform([-2, -2, 3], [2, 2, 12], size=(n, 3))
+    Xc[0] = [1e-12, -1e-12, 0.0]  # the z clamp, with finite blocks
+    ins = (t(Xc), t(R), t(rng.uniform([0, 0], [640, 480], size=(n, 2))),
+           t(rng.uniform(0.1, 1.0, size=n)))
+    intr = (500.0, 510.0, 320.0, 240.0)
+    before = ba_blocks.launches
+    out = ba_blocks.ba_blocks(*ins, intr)
+    ref = ba_blocks.ba_blocks_plain(*ins, intr)
+    torch.cuda.synchronize()
+    assert ba_blocks.launches == before + 1
+    for key in ref:
+        assert torch.equal(out[key], ref[key]), key

@@ -9,6 +9,8 @@ same float32 results, on the CPU and on the card alike.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -32,3 +34,18 @@ def sum_squares(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, x.shape[-1]):
         acc = fma(x[..., i], x[..., i], acc)
     return acc
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Full float32 for matmuls and convolutions in scope: on the card
+    PyTorch may run float32 products (and, by default, cuDNN convolutions)
+    in TF32, which keeps ~3 decimal digits and flips near-ties. The JAX
+    package pins precision HIGHEST at the same places."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

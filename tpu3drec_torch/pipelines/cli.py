@@ -5,6 +5,7 @@ the map-building subcommands), with the same flags and defaults:
   icp        estimate the scale-correcting 4x4 T between two clouds
   icp-fuse   two clouds + T_data.txt -> merged PLY
   ply2bt     PLY -> octomap .bt
+  sfm        image directory -> pose txt + sparse PLY (incremental SfM)
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
 on the card; ``--device cpu`` asks for the CPU.
@@ -13,8 +14,12 @@ on the card; ``--device cpu`` asks for the CPU.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
+
+import numpy as np
 
 
 def _cmd_rgbd(args):
@@ -82,6 +87,21 @@ def _cmd_ply2bt(args):
     print(f"{n_pts} points -> {n_vox} voxels, {n} nodes -> {args.out}")
 
 
+def _cmd_sfm(args):
+    from PIL import Image
+
+    from tpu3drec_torch.pipelines.sfm_pipeline import SfmPipelineConfig, run
+
+    paths = sorted(glob.glob(os.path.join(args.images, "*")))
+    imgs = np.stack([np.asarray(Image.open(p).convert("L"), np.float32) / 255.0 for p in paths])
+    K = np.array([[args.fx, 0, args.cx], [0, args.fy, args.cy], [0, 0, 1]], np.float32)
+    cfg = SfmPipelineConfig(max_keypoints=args.max_keypoints, out_poses=args.out_poses,
+                            out_sparse_ply=args.out_ply, verbose=True)
+    rec = run(imgs, K, cfg, image_names=[os.path.basename(p) for p in paths],
+              device=args.device)
+    print(f"registered {len(rec.poses)}/{len(paths)} frames, {len(rec.points)} landmarks")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu3drec_torch")
     p.add_argument("--device", default=None,
@@ -117,6 +137,17 @@ def main(argv=None):
     q.add_argument("--out", required=True)
     q.add_argument("--max-points", dest="max_points", type=int, default=0)
     q.set_defaults(fn=_cmd_ply2bt)
+
+    q = sub.add_parser("sfm", help="images -> poses + sparse cloud")
+    q.add_argument("images")
+    q.add_argument("--fx", type=float, default=600.391)
+    q.add_argument("--fy", type=float, default=600.079)
+    q.add_argument("--cx", type=float, default=320.0)
+    q.add_argument("--cy", type=float, default=240.0)
+    q.add_argument("--max-keypoints", dest="max_keypoints", type=int, default=512)
+    q.add_argument("--out-poses", dest="out_poses", default="poses.txt")
+    q.add_argument("--out-ply", dest="out_ply", default="sparse.ply")
+    q.set_defaults(fn=_cmd_sfm)
 
     args = p.parse_args(argv)
     return args.fn(args)
