@@ -34,7 +34,9 @@ Phases, one flushed line each with its wall seconds:
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
 phase 8 for matcher) and read just after. The last lines are the kernels as
-one JSON object, nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
+one JSON object (with each __global__'s registers and spill bytes as ptxas
+reported them, and the reference splits the ICP-NN and matcher kernels
+used at their timed shapes), nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
 failed check exits non-zero before that. Inputs come from numpy's
 default_rng(--seed); files go to a temporary directory, kernels to build/.
 """
@@ -261,7 +263,17 @@ def compare_nn(q, r, idx_k, d2_k, idx_p, d2_p):
     return float(err.max()), int(diff.numel())
 
 
+def _split_info(name: str, plan, dev):
+    """A kernel's split plan at the timed shape, beside the blocks an SM
+    holds that it was planned from."""
+    from tpu3drec_torch.ops import build
+
+    return {"splits": plan[0], "refs_per_split": plan[1],
+            "blocks_per_sm": build.blocks_per_sm(name, dev)}
+
+
 def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
+    from tpu3drec_torch.ops import icp_nn
     from tpu3drec_torch.ops.icp_nn import nearest_neighbors_cuda, nearest_neighbors_plain
 
     def kernel(q, r):
@@ -307,6 +319,7 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
     t_bytes = ((nq + nr) * 12 + nq * 8) / HBM_BYTES_S
     return {
         "name": "icp_nn",
+        "splits": _split_info("icp_nn", icp_nn.launch_plan(nq, nr, dev), dev) if gpu else None,
         "route": "cuda",
         "source": "tpu3drec_torch/ops/csrc/icp_nn.cu",
         "replaces": "tpu3drec/ops/icp_nn.py:42",
@@ -414,6 +427,7 @@ def phase_matcher(dev, rng, gpu: bool):
     bound_ms, bound_by = _matcher_bound(P, K, K, D)
     return {
         "name": "matcher",
+        "splits": _split_info("matcher", matcher.launch_plan(P, K, K, dev), dev) if gpu else None,
         "route": "cuda",
         "source": "tpu3drec_torch/ops/csrc/matcher.cu",
         # the batched kernel is the one on the main path; the same
@@ -640,6 +654,8 @@ def phase_sfm(dev, rng, gpu: bool, tmp: str, ph):
     Pm, Km, D = a.shape
     kern = matcher.topk2_scores_batched_cuda if gpu else matcher.topk2_scores_batched_plain
     main["shape"] = [Pm, Km, b.shape[1], D]
+    main["splits"] = (_split_info("matcher", matcher.launch_plan(Pm, Km, b.shape[1], dev), dev)
+                      if gpu else None)
     main["ms"] = time_ms(lambda: kern(a, b, v), dev, reps=20 if gpu else 1,
                          warmup=2 if gpu else 0)
     main["plain_ms"] = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
@@ -854,7 +870,9 @@ def main(argv=None) -> int:
             m_row["main_path"] = main
 
     rows = [row, m_row, b_row]
-    for r in rows:
+    for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):
+        # registers and spill bytes of each __global__, from ptxas's report
+        r["ptxas"] = build.ptxas_usage(src) if gpu else None
         r["kernel_ms"] = r["ms"]
         r["ok"] = True
         if gpu:

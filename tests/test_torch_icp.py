@@ -125,6 +125,106 @@ def test_build_without_nvcc_raises():
         build._nvcc()
 
 
+# ---- the kernel's split plan and key merge, held here on the CPU ----------
+
+
+def _key_np(d, idx):
+    return (d.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+        idx.astype(np.uint64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_packed_key_orders_as_distance_then_index(seed):
+    """bits(d) << 32 | idx, as an unsigned integer, orders like (d, idx) for
+    d >= 0: +0, subnormals, 1e30 (the start value), inf and random d."""
+    rng = np.random.default_rng(seed)
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    special = np.array([0.0, tiny, 2 * tiny, np.finfo(np.float32).tiny, 1e-30, 1.0, 1e30,
+                        np.nextafter(np.float32(1e30), np.float32(np.inf)), np.inf], np.float32)
+    d = np.concatenate([special, rng.exponential(size=200).astype(np.float32),
+                        rng.choice(special, 200)])
+    idx = rng.integers(0, 2**31 - 1, d.size).astype(np.int64)
+    idx[:50] = idx[50:100]  # equal indices too
+    key = ticp_nn.pack_key(torch.as_tensor(d), torch.as_tensor(idx))
+    assert key.dtype == torch.int64 and bool((key >= 0).all())  # never negative as int64
+    np.testing.assert_array_equal(key.numpy().astype(np.uint64), _key_np(d, idx))
+    by_key = np.argsort(key.numpy(), kind="stable")
+    by_pair = np.lexsort((idx, d))
+    np.testing.assert_array_equal(key.numpy()[by_key], key.numpy()[by_pair])
+    np.testing.assert_array_equal(d[by_key], d[by_pair])
+    np.testing.assert_array_equal(idx[by_key], idx[by_pair])
+    back_i, back_d = ticp_nn.unpack_key(key)
+    np.testing.assert_array_equal(back_i.numpy(), idx.astype(np.int32))
+    np.testing.assert_array_equal(back_d.numpy().view(np.uint32), d.view(np.uint32))
+    assert ticp_nn.KEY_INIT == int(_key_np(np.array([1e30]), np.array([0]))[0])
+
+
+def _plan_ranges(splits, chunk, nr):
+    return [(s * chunk, min(nr, (s + 1) * chunk)) for s in range(splits)]
+
+
+@pytest.mark.parametrize("nq,nr", [(1, 1), (76_800, 5), (76_800, 20), (1000, 3001),
+                                   (76_800, 76_800), (76_801, 76_799)])
+@pytest.mark.parametrize("sms,bps", [(132, 8), (132, 7), (114, 5), (1, 1)])
+def test_split_plan_covers_every_reference_once(nq, nr, sms, bps):
+    splits, chunk = ticp_nn.split_plan(nq, nr, sms, bps)
+    assert 1 <= splits <= ticp_nn.MAX_SPLITS and chunk % ticp_nn.GROUP == 0
+    ranges = _plan_ranges(splits, chunk, nr)
+    assert all(lo < hi for lo, hi in ranges)  # no empty split
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+    np.testing.assert_array_equal(covered, np.arange(nr))
+    if nr >= ticp_nn.GROUP * ticp_nn.MAX_SPLITS and sms * bps > 1:
+        # the slowest SM's references stay within 10% of an even spread
+        qblocks = -(-nq // ticp_nn.Q_PER_BLOCK)
+        waves = -(-qblocks * splits // (sms * bps))
+        assert waves * chunk <= 1.1 * qblocks * nr / (sms * bps) + chunk
+
+
+def test_split_plan_at_the_slice_shape():
+    # 150 query blocks x 7 splits = 1050 blocks in 132 SMs x 8 slots: one wave
+    assert ticp_nn.split_plan(76_800, 76_800, 132, 8) == (7, 10_976)
+    with pytest.raises(ValueError):
+        ticp_nn.split_plan(1, 0, 132, 8)
+
+
+def _split_merged_plain(q, r, chunk):
+    """The kernel's merge with the plain version: each split's answer, where
+    it beat the 1e30 start, folded into keys by their minimum."""
+    key = torch.full((q.shape[0],), ticp_nn.KEY_INIT, dtype=torch.int64)
+    ranges = _plan_ranges(-(-r.shape[0] // chunk), chunk, r.shape[0])
+    for lo, hi in ranges[::-1]:  # any order of arrival
+        idx, d2 = ticp_nn.nearest_neighbors_plain(q, r[lo:hi])
+        k = ticp_nn.pack_key(d2, idx + lo)
+        key = torch.where(d2 < 1e30, torch.minimum(key, k), key)
+    return ticp_nn.unpack_key(key)
+
+
+def _tie_lattice(rng):
+    """chip_smoke.py phase 3's `ties` case: exact duplicates in the
+    reference set and queries on lattice points and midpoints."""
+    lattice = np.stack(np.meshgrid(*[np.arange(6.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    dup = rng.normal(size=(700, 3))
+    return (np.concatenate([lattice + 0.5, lattice, dup[:300]]),
+            np.concatenate([dup, lattice, dup, lattice[::-1]]))
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "far_split"])
+@pytest.mark.parametrize("chunk", [8, 16, 216, 704])
+def test_split_merge_equals_unsplit_plain(case, chunk):
+    rng = np.random.default_rng(chunk)
+    if case == "random":
+        q, r = rng.normal(size=(300, 3)), rng.normal(size=(1001, 3))
+    elif case == "ties":
+        q, r = _tie_lattice(rng)
+    else:  # a split whose distances all reach the 1e30 start: it never merges
+        q, r = rng.normal(size=(200, 3)), rng.normal(size=(900, 3))
+        r[chunk:2 * chunk] = 1e16
+    q, r = _t(q), _t(r)
+    idx, d2 = _split_merged_plain(q, r, chunk)
+    pidx, pd2 = ticp_nn.nearest_neighbors_plain(q, r)
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_pairwise_sqdist(seed):
     rng = np.random.default_rng(seed)

@@ -99,6 +99,73 @@ def test_plain_tiling_does_not_change_the_result(tile, rng):
     assert torch.equal(ref[0], out[0]) and torch.equal(ref[1], out[1])
 
 
+# ---- the kernel's split plan and merge, held here on the CPU --------------
+
+
+@pytest.mark.parametrize("P,Ka,Kb", [(1, 1, 0), (1, 1, 1), (1, 300, 129), (1, 300, 2049),
+                                     (30, 512, 512), (8, 4096, 4096), (2, 65, 300)])
+@pytest.mark.parametrize("sms,bps", [(132, 2), (132, 1), (114, 3)])
+def test_split_plan_covers_every_reference_once(P, Ka, Kb, sms, bps):
+    splits, per = matcher.split_plan(P, Ka, Kb, sms, bps)
+    assert splits >= 1 and per % matcher.TILE_R == 0
+    ranges = [(s * per, min(Kb, (s + 1) * per)) for s in range(splits)]
+    if Kb:
+        assert all(lo < hi for lo, hi in ranges)  # no empty split
+        covered = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+        np.testing.assert_array_equal(covered, np.arange(Kb))
+    else:
+        assert splits == 1
+
+
+def test_split_plan_at_the_main_path_shapes():
+    # two 256-thread blocks per SM on 132 SMs
+    assert matcher.split_plan(30, 512, 512, 132, 2) == (2, 256)  # 240 blocks in 264 slots
+    assert matcher.split_plan(8, 4096, 4096, 132, 2) == (1, 4096)  # 256 blocks in 264 slots
+
+
+def _split_merged_plain(a, b, v, per, order):
+    """The kernel's merge with the plain version: each split's state, whose
+    index is 0 until a score beats the -3 start, folded by `merge_top2`."""
+    Kb = b.shape[1]
+    ranges = [(lo, min(Kb, lo + per)) for lo in range(0, Kb, per)]
+    states = []
+    for lo, hi in ranges:
+        best, top2 = matcher.topk2_scores_batched_plain(a, b[:, lo:hi], v[:, lo:hi])
+        s1, s2 = top2[..., 0], top2[..., 1]
+        states.append((torch.where(s1 > matcher.INVALID, best + lo, 0), s1, s2))
+    states = states[::-1] if order == "reversed" else states
+    i1, s1, s2 = states[0]
+    for st in states[1:]:
+        i1, s1, s2 = matcher.merge_top2(i1, s1, s2, *st)
+    return i1.to(torch.int32), torch.stack([s1, s2], dim=-1)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed"])
+@pytest.mark.parametrize("per", [128, 256])
+def test_split_merge_equals_unsplit_plain(order, per, rng):
+    """Exact ties across a split boundary, a split with no valid reference,
+    Kb off the tile: split-and-merge equals one pass, bit for bit."""
+    P, Ka, Kb, D = 2, 70, 3 * per + 44, 8
+    b = _unit(rng, P, Kb, D)
+    b[:, per:per + 20] = b[:, per - 20:per]  # tied scores straddle the boundary
+    a = np.concatenate([b[:, per - 20:per], _unit(rng, P, Ka - 20, D)], 1)
+    v = rng.random((P, Kb)) >= 0.2
+    v[:, per - 20:per + 20] = True
+    v[0, 2 * per:3 * per] = False  # a split with no valid reference
+    v[1, :] = False
+    v[1, per:per + 3] = True  # pair 1: valid references in one split only
+    a, b, v = _t(a), _t(b), _t(v)
+    best, top2 = _split_merged_plain(a, b, v, per, order)
+    pbest, ptop2 = matcher.topk2_scores_batched_plain(a, b, v)
+    assert torch.equal(best, pbest) and torch.equal(top2, ptop2)
+    np.testing.assert_array_equal(best.numpy()[0, :20], per - 20 + np.arange(20))
+    np.testing.assert_array_equal(top2.numpy()[0, :20, 0], top2.numpy()[0, :20, 1])
+    # all references invalid: every split's start state, and the answer's
+    none = torch.zeros_like(v)
+    best, top2 = _split_merged_plain(a, b, none, per, order)
+    assert bool((best == 0).all()) and bool((top2 == matcher.INVALID).all())
+
+
 def test_cuda_wrapper_refuses_cpu_tensors(rng):
     a = _t(_unit(rng, 1, 4, 8))
     with pytest.raises(ValueError):

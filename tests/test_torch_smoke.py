@@ -102,7 +102,8 @@ def test_port_import_rules(rule):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nr", [(1, 1), (1000, 3001), (777, 500), (76_800, 76_800)])
+@pytest.mark.parametrize("nq,nr", [(1, 1), (1000, 3001), (777, 500), (76_800, 76_800),
+                                   (5_000, 5), (76_800, 20), (513, 76_801)])
 def test_kernel_matches_plain_on_the_card(nq, nr):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -115,6 +116,32 @@ def test_kernel_matches_plain_on_the_card(nq, nr):
     torch.cuda.synchronize()
     assert icp_nn.launches == before + 1
     # the kernel rounds each product and sum on its own, like the plain version
+    assert torch.equal(d2, pd2)
+    assert torch.equal(idx, pidx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq", [1, 1000, 76_800])
+def test_kernel_ties_across_splits_on_the_card(nq):
+    """Exact duplicates of every reference one split apart, and queries on
+    them: each tie goes to the lower index, across the atomic merge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    nr = 76_800
+    splits, chunk = icp_nn.launch_plan(nq, nr, torch.device("cuda"))
+    assert splits > 1
+    base = rng.integers(-20, 20, size=(chunk, 3)).astype(np.float32)
+    r = np.concatenate([base] * (-(-nr // chunk)))[:nr][::-1].copy()
+    q = np.concatenate([r[chunk - 3:chunk + 3], rng.integers(-20, 20, size=(nq, 3))])[:nq]
+    q = torch.as_tensor(q + np.float32(0.5) * (np.arange(nq) % 2)[:, None], dtype=torch.float32,
+                        device="cuda")
+    r = torch.as_tensor(r, device="cuda")
+    before = icp_nn.launches
+    idx, d2 = icp_nn.nearest_neighbors_cuda(q, r)
+    pidx, pd2 = icp_nn.nearest_neighbors_plain(q, r)
+    torch.cuda.synchronize()
+    assert icp_nn.launches == before + 1
     assert torch.equal(d2, pd2)
     assert torch.equal(idx, pidx)
 
@@ -143,6 +170,38 @@ def test_matcher_kernel_matches_plain_on_the_card(p, ka, kb, d):
     # the same summation order over d, each product and sum rounded alone
     assert torch.equal(best, pbest)
     assert torch.equal(top2, ptop2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,ka,kb,d", [(1, 300, 1000, 128), (2, 200, 777, 128), (4, 512, 512, 128),
+                                       (1, 65, 300, 20)])
+def test_matcher_splits_on_the_card(p, ka, kb, d):
+    """Kb off the tile, exact ties one split apart, and a split with no
+    valid reference: the kernel's split-and-merge against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(4)
+    splits, cut = matcher.launch_plan(p, ka, kb, torch.device("cuda"))
+    assert splits > 1
+    b = _unit(rng, p, kb, d)
+    b[:, cut:cut + 40] = b[:, cut - 40:cut]  # exact ties across the first boundary
+    a = np.concatenate([b[:, cut - 40:cut], _unit(rng, p, ka, d)], 1)[:, :ka]
+    v = rng.random((p, kb)) >= 0.1
+    v[:, cut - 40:cut + 40] = True
+    if splits >= 3:
+        v[:, 2 * cut:3 * cut] = False  # a split with no valid reference
+    else:
+        v[-1, cut:] = False
+    a, b, v = (torch.as_tensor(x, device="cuda") for x in (a, b, v))
+    before = matcher.launches
+    best, top2 = matcher.topk2_scores_batched(a, b, v)
+    pbest, ptop2 = matcher.topk2_scores_batched_plain(a, b, v)
+    torch.cuda.synchronize()
+    assert matcher.launches == before + 1
+    assert torch.equal(best, pbest)
+    assert torch.equal(top2, ptop2)
+    # the tied queries take the lower index, the one before the boundary
+    assert bool((best[:, :40] == cut - 40 + torch.arange(40, device="cuda")).all())
 
 
 @pytest.mark.gpu

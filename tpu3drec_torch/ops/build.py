@@ -13,9 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -29,8 +32,49 @@ BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# compiler output (-Xptxas -v: registers, shared memory, spills) by source
+# compiler output (-Xptxas -v: registers, shared memory, spills) by source,
+# also kept beside each library as <library>.log
 build_logs: dict[str, str] = {}
+
+
+def ptxas_usage(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each __global__ in ``csrc/<name>.cu``,
+    from ptxas's report of its build: {function: {"registers", "spill_stores",
+    "spill_loads", "smem"}}, keyed by the function's plain name."""
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = _plain_name(m.group(1))
+            out[fn] = {"registers": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[fn][key] = int(m.group(1))
+    return out
+
+
+def _plain_name(mangled: str) -> str:
+    """The innermost name of an Itanium-mangled function name, e.g.
+    icp_nn_kernel from _ZN41_GLOBAL__N__..._cu_568efe9413icp_nn_kernelEPKf..."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
 
 
 def _nvcc() -> str:
@@ -57,6 +101,10 @@ def build(names: list[str] | None = None) -> dict[str, str]:
         names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
     out = {name: _target(name) for name in names}
     todo = [(name, src, lib) for name, (src, lib) in out.items() if not os.path.exists(lib)]
+    for name, (_, lib) in out.items():  # a library built earlier: its compiler output
+        if os.path.exists(lib) and os.path.exists(lib + ".log"):
+            with open(lib + ".log") as f:
+                build_logs[name] = f.read()
     nvcc = _nvcc() if todo else None
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
@@ -75,6 +123,8 @@ def build(names: list[str] | None = None) -> dict[str, str]:
             log = f"timed out after {BUILD_TIMEOUT_S}s\n{log}"
         build_logs[name] = log
         if proc.returncode == 0:
+            with open(lib + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, lib)
             continue
         errors.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
@@ -93,3 +143,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _libs[name] = lib
         return lib
+
+
+_blocks_per_sm: dict[tuple[str, int], int] = {}
+
+
+def blocks_per_sm(name: str, device) -> int:
+    """Blocks of the kernel of ``csrc/<name>.cu`` that one SM of the card
+    ``device`` holds at once, from the occupancy query that the library
+    exports as ``tpu3drec_<name>_blocks_per_sm`` (asked once per card)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if (name, index) not in _blocks_per_sm:
+        fn = getattr(load(name), f"tpu3drec_{name}_blocks_per_sm")
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(ctypes.byref(out))
+        if rc != 0 or out.value <= 0:
+            raise RuntimeError(f"{name} occupancy query failed: cudaError {rc}")
+        _blocks_per_sm[(name, index)] = out.value
+    return _blocks_per_sm[(name, index)]

@@ -24,19 +24,39 @@
 // P = 8, K = 4096, D = 128 that is 34.4 GFLOP against ~34 MB, so the
 // operations bound it (0.513 ms at 67 TFLOP/s). Without fused multiply-adds
 // the CUDA cores issue a multiply and an add per term, so this kernel can
-// reach at most half of that peak.
+// reach at most half of that peak: an issue floor of ~1.03 ms there.
 //
-// Design: a classic register-tiled fp32 product. A block of 256 threads owns
-// one pair and 128 queries; it walks the references in tiles of 64, staging
-// the query tile and the reference tile through shared memory 32 dimensions
-// at a time (transposed and padded by one column so that neither the stores
-// nor the loads conflict on banks). Each thread accumulates a 4 x 8 block of
-// scores (queries qg + 32 i, references rg + 8 j) in registers, then folds its
-// eight scores of each query into that query's running (best, s1, s2). After
-// the last tile the eight threads that share a query (neighbouring lanes of
-// one warp) merge their states with shuffles. The Ka x Kb score matrix never
-// exists in device memory; nothing is carried between blocks, and the ragged
-// edges in Ka, Kb and D are cut by count, with no padding. There is no
+// Design.
+//   * A block of 256 threads owns (pair, 128 queries, one split of the
+//     references) and walks the split in tiles of 128 references. Each
+//     thread accumulates an 8 x 8 block of scores in registers: queries
+//     4 ty + i and 64 + 4 ty + i, references 4 tx + j and 64 + 4 tx + j
+//     (ty = tid / 16, tx = tid % 16, i, j < 4). Per dimension it reads them
+//     with four float4 loads from shared memory (two of them broadcasts),
+//     so 4 loads feed 64 multiply-add pairs.
+//   * Both tiles are staged 32 dimensions at a time, transposed ([d][row],
+//     rows padded to 132 floats) by 4-byte cp.async copies, in two stages:
+//     the copy of the next slice runs while this one is summed. A warp
+//     copies 8 dimensions of 4 rows, which is 32-byte runs of device memory
+//     and 32 distinct banks. Rows and dimensions past the edge are filled
+//     with +0; a product 0 * 0 added to a sum that started at +0 leaves it
+//     unchanged, so a ragged D needs no other care. The stages live in
+//     dynamic shared memory (90 KB with the states below), two blocks to an
+//     SM.
+//   * After each reference tile a thread folds its 64 scores into the
+//     (best, s1, s2) states of its 8 queries, which wait in shared memory
+//     (one word per thread, no bank conflicts) so that they hold no
+//     registers during the sums. At the end the 16 threads of a query
+//     (lanes of one half warp) merge their states with shuffles.
+//   * The references are cut into splits so that the grid fills the card
+//     (ops/matcher.py::split_plan picks the count from the SM count and
+//     the occupancy this build reports). With one split the block writes
+//     the answer; with more, each split writes its state and a second small
+//     __global__ merges them. The merge rule (larger s1, the lower index on
+//     equal s1, s2 = max(min(s1a, s1b), s2a, s2b)) gives the unsplit answer
+//     in any order, and a split of only invalid references gives the start
+//     state (0, -3, -3), which the merge leaves out.
+// The Ka x Kb score matrix never exists in device memory. There is no
 // interpret mode: the CPU runs topk2_scores_plain instead.
 
 #include <cuda_runtime.h>
@@ -44,11 +64,15 @@
 namespace {
 
 constexpr int kTileQ = 128;  // queries per block
-constexpr int kTileR = 64;   // references per tile
-constexpr int kTileD = 32;   // dimensions staged per pass
+constexpr int kTileR = 128;  // references per tile
+constexpr int kSliceD = 32;  // dimensions staged per pass
 constexpr int kThreads = 256;
-constexpr int kQPer = 4;     // queries per thread: qg + 32 i
-constexpr int kRPer = 8;     // references per thread: rg + 8 j
+constexpr int kPer = 8;                              // queries and references per thread
+constexpr int kLd = 132;                             // floats per staged dimension row
+constexpr int kStageFloats = 2 * kSliceD * kLd;      // the A and the B slice
+constexpr int kStateWords = kPer * kThreads;         // per state field
+constexpr size_t kSmemBytes =
+    (2 * kStageFloats + 3 * kStateWords) * sizeof(float);
 constexpr float kInvalid = -3.0f;
 
 struct Top2 {
@@ -77,105 +101,228 @@ __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
   return m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-matcher_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               const unsigned char* __restrict__ valid_b, int ka, int kb, int d,
-               int* __restrict__ best, float* __restrict__ top2) {
-  __shared__ float as[kTileD][kTileQ + 1];
-  __shared__ float bs[kTileD][kTileR + 1];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  const int bytes = full ? 4 : 0;  // 0: fill with zeros, read nothing
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
 
-  const int pair = blockIdx.y;
-  const int q0 = blockIdx.x * kTileQ;
-  const int tid = threadIdx.x;
-  const int qg = tid / kRPer;  // 0 .. 31
-  const int rg = tid % kRPer;  // 0 .. 7
-  const float* ap = a + static_cast<size_t>(pair) * ka * d;
-  const float* bp = b + static_cast<size_t>(pair) * kb * d;
-  const unsigned char* vp = valid_b + static_cast<size_t>(pair) * kb;
-  const int nq = min(kTileQ, ka - q0);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  Top2 st[kQPer];
-#pragma unroll
-  for (int i = 0; i < kQPer; ++i) st[i] = {0, kInvalid, kInvalid};
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  for (int r0 = 0; r0 < kb; r0 += kTileR) {
-    const int nr = min(kTileR, kb - r0);
-    float acc[kQPer][kRPer];
+// Stage dimensions [d0, d0 + 32) of rows [row0, row0 + 128) of `src` (rows
+// of d floats, nrows in all) transposed into dst[dd * kLd + row]. Thread
+// tid copies rows rt + 32 k and dimensions dt + 8 m (k, m < 4), so a warp
+// copies 8 dimensions of 4 rows at each step.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int row0,
+                                      int nrows, int d0, int d, int tid) {
+  const int rt = (tid >> 5) * 4 + ((tid & 31) >> 3), dt = tid & 7;
+  const float* p = src + static_cast<size_t>(row0 + rt) * d + d0 + dt;
+  float* q = dst + dt * kLd + rt;
 #pragma unroll
-    for (int i = 0; i < kQPer; ++i)
+  for (int m = 0; m < kSliceD / 8; ++m) {
+    const bool dim_in = d0 + dt + 8 * m < d;
 #pragma unroll
-      for (int j = 0; j < kRPer; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += kTileD) {
-      const int nd = min(kTileD, d - d0);
-      __syncthreads();  // the previous slices have been read
-      // consecutive threads read consecutive dimensions of one row
-      for (int e = tid; e < kTileQ * kTileD; e += kThreads) {
-        const int q = e / kTileD, dd = e % kTileD;
-        as[dd][q] = (q < nq && dd < nd) ? ap[static_cast<size_t>(q0 + q) * d + d0 + dd] : 0.f;
-      }
-      for (int e = tid; e < kTileR * kTileD; e += kThreads) {
-        const int r = e / kTileD, dd = e % kTileD;
-        bs[dd][r] = (r < nr && dd < nd) ? bp[static_cast<size_t>(r0 + r) * d + d0 + dd] : 0.f;
-      }
-      __syncthreads();
-      for (int dd = 0; dd < nd; ++dd) {  // fixed order over d
-        float av[kQPer], bv[kRPer];
-#pragma unroll
-        for (int i = 0; i < kQPer; ++i) av[i] = as[dd][qg + 32 * i];
-#pragma unroll
-        for (int j = 0; j < kRPer; ++j) bv[j] = bs[dd][rg + 8 * j];
-#pragma unroll
-        for (int i = 0; i < kQPer; ++i)
-#pragma unroll
-          for (int j = 0; j < kRPer; ++j)
-            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(av[i], bv[j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRPer; ++j) {
-      const int r = rg + 8 * j;
-      if (r < nr) {
-        const bool ok = vp[r0 + r] != 0;
-#pragma unroll
-        for (int i = 0; i < kQPer; ++i) push(st[i], ok ? acc[i][j] : kInvalid, r0 + r);
-      }
-    }
-  }
-
-  // the eight threads of a query are lanes 8k .. 8k+7 of one warp
-#pragma unroll
-  for (int i = 0; i < kQPer; ++i) {
-#pragma unroll
-    for (int off = 1; off < kRPer; off <<= 1) {
-      Top2 o;
-      o.i1 = __shfl_xor_sync(0xffffffffu, st[i].i1, off);
-      o.s1 = __shfl_xor_sync(0xffffffffu, st[i].s1, off);
-      o.s2 = __shfl_xor_sync(0xffffffffu, st[i].s2, off);
-      st[i] = merge(st[i], o);
-    }
-    const int q = qg + 32 * i;
-    if (rg == 0 && q < nq) {
-      const size_t o = static_cast<size_t>(pair) * ka + q0 + q;
-      best[o] = st[i].i1;
-      top2[2 * o] = st[i].s1;
-      top2[2 * o + 1] = st[i].s2;
+    for (int k = 0; k < kTileQ / 32; ++k) {
+      const bool full = dim_in && row0 + rt + 32 * k < nrows;
+      cp_async4(q + 8 * m * kLd + 32 * k, full ? p + static_cast<size_t>(32 * k) * d + 8 * m : src,
+                full);
     }
   }
 }
 
+// Two blocks an SM, so at most 128 registers a thread; ptxas then keeps the
+// 64 sums, the 16 operands and the addresses without a spill. (Given only the
+// thread count, ptxas capped the earlier 4 x 8 version at 64 and spilled.)
+__global__ void __launch_bounds__(kThreads, 2)
+matcher_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               const unsigned char* __restrict__ valid_b, int ka, int kb, int d,
+               int split_refs, int* __restrict__ best, float* __restrict__ top2) {
+  extern __shared__ __align__(16) float smem[];
+  int* st_i = reinterpret_cast<int*>(smem + 2 * kStageFloats);
+  float* st_s1 = smem + 2 * kStageFloats + kStateWords;
+  float* st_s2 = smem + 2 * kStageFloats + 2 * kStateWords;
+
+  const int pair = blockIdx.z;
+  const int split = blockIdx.y;
+  const int q0 = blockIdx.x * kTileQ;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const float* ap = a + static_cast<size_t>(pair) * ka * d;
+  const float* bp = b + static_cast<size_t>(pair) * kb * d;
+  const unsigned char* vp = valid_b + static_cast<size_t>(pair) * kb;
+  const int r_begin = split * split_refs;
+  const int r_end = min(kb, r_begin + split_refs);
+  const int tiles = r_end > r_begin ? (r_end - r_begin + kTileR - 1) / kTileR : 0;
+  const int slices = (d + kSliceD - 1) / kSliceD;
+  const int steps = tiles * slices;
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    st_i[i * kThreads + tid] = 0;
+    st_s1[i * kThreads + tid] = kInvalid;
+    st_s2[i * kThreads + tid] = kInvalid;
+  }
+
+  float acc[kPer][kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[i][j] = 0.f;
+  if (steps > 0) {
+    stage(smem, ap, q0, ka, 0, d, tid);
+    stage(smem + kSliceD * kLd, bp, r_begin, r_end, 0, d, tid);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    const int t = step / slices, sl = step % slices;
+    const int r0 = r_begin + t * kTileR;
+    if (step + 1 < steps) {  // the next slice, into the other stage
+      const int tn = (step + 1) / slices, sn = (step + 1) % slices;
+      float* nxt = smem + ((step + 1) & 1) * kStageFloats;
+      stage(nxt, ap, q0, ka, sn * kSliceD, d, tid);
+      stage(nxt + kSliceD * kLd, bp, r_begin + tn * kTileR, r_end, sn * kSliceD, d, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this slice has landed for every thread
+    const float* as = smem + (step & 1) * kStageFloats;
+    const float* bs = as + kSliceD * kLd;
+    // not unrolled: unrolled, ptxas spills a word at the 128-register cap
+#pragma unroll 1
+    for (int dd = 0; dd < kSliceD; ++dd) {  // fixed order over d
+      const float4 a0 = *reinterpret_cast<const float4*>(as + dd * kLd + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + dd * kLd + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + dd * kLd + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + dd * kLd + 64 + 4 * tx);
+      const float av[kPer] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[kPer] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(av[i], bv[j]));
+    }
+    if (sl == slices - 1) {  // the tile's scores are complete: fold them in
+      unsigned int in_range = 0, ok = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int r = r0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+        if (r < r_end) {
+          in_range |= 1u << j;
+          ok |= (vp[r] != 0 ? 1u : 0u) << j;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        Top2 st = {st_i[i * kThreads + tid], st_s1[i * kThreads + tid],
+                   st_s2[i * kThreads + tid]};
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int r = r0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+          if (in_range & (1u << j)) push(st, (ok & (1u << j)) ? acc[i][j] : kInvalid, r);
+        }
+        st_i[i * kThreads + tid] = st.i1;
+        st_s1[i * kThreads + tid] = st.s1;
+        st_s2[i * kThreads + tid] = st.s2;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) acc[i][j] = 0.f;
+    }
+    __syncthreads();  // every thread is done with this stage before it is refilled
+  }
+
+  // the 16 threads of a query are lanes 16h .. 16h + 15 of one warp
+  const size_t slot = static_cast<size_t>(split) * gridDim.z + pair;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    Top2 st = {st_i[i * kThreads + tid], st_s1[i * kThreads + tid], st_s2[i * kThreads + tid]};
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      Top2 o;
+      o.i1 = __shfl_xor_sync(0xffffffffu, st.i1, off);
+      o.s1 = __shfl_xor_sync(0xffffffffu, st.s1, off);
+      o.s2 = __shfl_xor_sync(0xffffffffu, st.s2, off);
+      st = merge(st, o);
+    }
+    const int q = q0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (tx == 0 && q < ka) {
+      const size_t o = slot * ka + q;
+      best[o] = st.i1;
+      top2[2 * o] = st.s1;
+      top2[2 * o + 1] = st.s2;
+    }
+  }
+}
+
+// Fold the per-split states (splits, p * ka) into the answer (p * ka).
+__global__ void matcher_merge(const int* __restrict__ part_i, const float* __restrict__ part_s,
+                              int splits, int n, int* __restrict__ best,
+                              float* __restrict__ top2) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  Top2 st = {part_i[o], part_s[2 * o], part_s[2 * o + 1]};
+  for (int s = 1; s < splits; ++s) {
+    const size_t k = static_cast<size_t>(s) * n + o;
+    st = merge(st, Top2{part_i[k], part_s[2 * k], part_s[2 * k + 1]});
+  }
+  best[o] = st.i1;
+  top2[2 * o] = st.s1;
+  top2[2 * o + 1] = st.s2;
+}
+
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(matcher_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kSmemBytes));
+}
+
 }  // namespace
 
+// Blocks of matcher_kernel that one SM holds at once, for the wrapper's
+// split plan. Returns the CUDA error code.
+extern "C" int tpu3drec_matcher_blocks_per_sm(int* blocks) {
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, matcher_kernel, kThreads, kSmemBytes));
+}
+
 // a: (p, ka, d), b: (p, kb, d) row-major float32; valid_b: (p, kb) bytes
-// (0 = invalid); best: (p, ka) int32; top2: (p, ka, 2) float32. Launches on
-// `stream` and returns cudaGetLastError() after the launch.
+// (0 = invalid); best: (p, ka) int32; top2: (p, ka, 2) float32. References
+// [s * split_refs, (s + 1) * split_refs) go to split s < splits (split_refs
+// a multiple of 128). With splits > 1, part_i (splits, p, ka) int32 and
+// part_s (splits, p, ka, 2) float32 hold the splits' states for the merge.
+// Launches on `stream` and returns cudaGetLastError() after the launches.
 extern "C" int tpu3drec_matcher(const float* a, const float* b, const unsigned char* valid_b,
-                                int p, int ka, int kb, int d, int* best, float* top2,
+                                int p, int ka, int kb, int d, int splits, int split_refs,
+                                int* part_i, float* part_s, int* best, float* top2,
                                 void* stream) {
   if (p <= 0 || ka <= 0) return static_cast<int>(cudaSuccess);
-  if (p > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((ka + kTileQ - 1) / kTileQ, p);
-  matcher_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, valid_b, ka, kb, d, best, top2);
+  const long long first_of_last = static_cast<long long>(splits - 1) * split_refs;
+  if (p > 65535 || splits <= 0 || splits > 65535 || split_refs <= 0 ||
+      split_refs % kTileR != 0 || first_of_last >= (kb > 0 ? kb : 1) ||
+      first_of_last + split_refs < kb || (splits > 1 && (!part_i || !part_s))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((ka + kTileQ - 1) / kTileQ, splits, p);
+  matcher_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      a, b, valid_b, ka, kb, d, split_refs, splits > 1 ? part_i : best,
+      splits > 1 ? part_s : top2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int n = p * ka;
+  matcher_merge<<<(n + 255) / 256, 256, 0, s>>>(part_i, part_s, splits, n, best, top2);
   return static_cast<int>(cudaGetLastError());
 }
