@@ -21,16 +21,21 @@ Phases, one flushed line each with its wall seconds:
      phase 8's shape (30 pairs x 512 x 512, padded rows invalid) and
      P=8 x K=4096 x D=128 in both directions, bit for bit; times of the
      kernel, the plain version, a bmm+topk yardstick, and the bound
-  7. BA-blocks kernel vs plain at O = 1, 511, 513, 65,536, bit for bit; then
-     `ba_solve(use_pallas_blocks=True)` (the kernel's path) against the jacfwd
-     path on a 64-camera, 8192-landmark, 65,536-observation problem, with
-     every launch of the block-path solve held against the plain version on
-     the inputs the solve gave it
+  7. BA-blocks kernel vs plain at O = 1, 31, 33, 511, 513, 65,536 and
+     262,144, bit for bit, timed at 65,536 (inside the 50 MB L2) and at
+     262,144 (112 MB, past it); then `ba_solve(use_pallas_blocks=True)` (the
+     kernel's path) against the jacfwd path on a 64-camera, 8192-landmark,
+     65,536-observation problem, with every launch of the block-path solve
+     held against the plain version on the inputs the solve gave it
   8. SfM: 12 seeded frames of 480x640 with the reference camera through
      `sfm_pipeline.run` (512 keypoints, overlap 3) -> pose txt + sparse PLY;
      registered frames, ATE after similarity alignment, time per stage; the
      matcher's launches on the path held against the plain version on the
      descriptors and valid masks the path gave them, and timed at that shape
+A kernel's `ms` is its device time (`kernel_times`: torch.profiler's CUDA
+activity, summed over the wrapper's __global__s, mean per call) and its
+`call_ms` the wrapper's time per call (CUDA events around a loop of calls,
+host work included); `kernel_ms` mirrors `ms`. On the CPU `ms` is None.
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
 phase 8 for matcher) and read just after. The last lines are the kernels as
@@ -130,6 +135,41 @@ def time_ms(fn, dev, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def kernel_times(fn, names, dev, reps: int, warmup: int = 1):
+    """(device ms, call ms) of a kernel's wrapper ``fn``.
+
+    The device time is the summed mean device duration, over ``reps``
+    calls, of the kernels whose names hold one of ``names`` (each
+    ``__global__`` the wrapper launches, the first of them on every call),
+    from torch.profiler's CUDA activity: the card's own time, whatever the
+    host does between launches. The call time is ``time_ms``'s: CUDA events
+    around a loop of calls, so a wrapper whose host work outlasts its kernel
+    shows the host. On the CPU there is no device time (None)."""
+    call_ms = time_ms(fn, dev, reps, warmup)
+    if dev.type != "cuda":
+        return None, call_ms
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sync(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        sync(dev)
+    # each __global__ runs at most once a call: the call's device time is the
+    # sum of their mean durations. The trace may miss a few launches (seen
+    # once, 45 of 50 kept), so a mean over those it kept, if most of them.
+    us = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                us[n].append(e.time_range.elapsed_us())
+                break
+    seen = len(us[names[0]])
+    check(2 * seen >= reps, f"the profiler saw {seen} launches of {names[0]} in {reps} calls")
+    return sum(sum(v) / len(v) for v in us.values() if v) / 1e3, call_ms
 
 
 def _clone(x):
@@ -307,7 +347,8 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
     q, r = results["full"]
     nq, nr = q.shape[0], r.shape[0]
     reps = 20 if gpu else 1
-    kernel_ms = time_ms(lambda: kernel(q, r), dev, reps=reps, warmup=2 if gpu else 0)
+    kernel_ms, call_ms = kernel_times(lambda: kernel(q, r), ("icp_nn_kernel", "icp_nn_unpack"),
+                                      dev, reps=reps, warmup=2 if gpu else 0)
     plain_ms = time_ms(lambda: nearest_neighbors_plain(q, r), dev, reps=3 if gpu else 1,
                        warmup=1 if gpu else 0)
     library_ms = None
@@ -327,6 +368,7 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
         "max_abs_err": max_err,
         "near_tie_swaps": swaps,
         "ms": kernel_ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -342,6 +384,10 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
 def _unit_rows(rng, *shape):
     x = rng.normal(size=shape).astype(np.float32)
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+# the matcher's __global__s: the scores, and the merge of reference splits
+MATCHER_KERNELS = ("matcher_kernel", "matcher_merge")
 
 
 def _matcher_bound(P, Ka, Kb, D):
@@ -420,7 +466,8 @@ def phase_matcher(dev, rng, gpu: bool):
 
     a, b, v = t(a_big), t(b_big), t(cases["batched_ab"][2])
     reps = 20 if gpu else 1
-    kernel_ms = time_ms(lambda: kernel(a, b, v), dev, reps=reps, warmup=2 if gpu else 0)
+    kernel_ms, call_ms = kernel_times(lambda: kernel(a, b, v), MATCHER_KERNELS, dev, reps=reps,
+                                      warmup=2 if gpu else 0)
     plain_ms = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
                        reps=3 if gpu else 1, warmup=1 if gpu else 0)
     library_ms = _matcher_library_ms(a, b, dev) if gpu else None
@@ -438,6 +485,7 @@ def phase_matcher(dev, rng, gpu: bool):
         "max_abs_err": max_err,
         "near_tie_swaps": 0,
         "ms": kernel_ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -484,14 +532,33 @@ def _ba_problem(rng, dev, F, L, O):
                                    device=dev)
 
 
-def phase_ba_blocks(dev, rng, gpu: bool):
+def _ba_times(ba_blocks, ins, intr, dev, gpu: bool):
+    """The kernel's device and call times, the plain version's time and the
+    byte bound (each input read once, each output written once) at the
+    size of ``ins``."""
+    O = ins[0].shape[0]
+    kern = ba_blocks.ba_blocks_cuda if gpu else ba_blocks.ba_blocks_plain
+    ms, call_ms = kernel_times(lambda: kern(*ins, intr), ("ba_blocks_kernel",), dev,
+                               reps=50 if gpu else 1, warmup=3 if gpu else 0)
+    plain_ms = time_ms(lambda: ba_blocks.ba_blocks_plain(*ins, intr), dev, reps=5 if gpu else 1,
+                       warmup=1 if gpu else 0)
+    return {"shape": [O], "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": (BA_FLOATS_IN + BA_FLOATS_OUT) * 4 * O / HBM_BYTES_S * 1e3}
+
+
+def phase_ba_blocks(dev, rng, gpu: bool, seed: int):
     from tpu3drec_torch.ops import ba_blocks
 
     intr = (500.0, 510.0, 320.0, 240.0)
     sizes = (1, 511, 513, 65_536) if gpu else (1, 511, 513, 2_048)
-    max_err = 0.0
-    for O in sizes:
-        ins = _ba_inputs(rng, O, dev)
+    # the sizes off a warp's 32 and the one past the 50 MB L2 (112 MB moved)
+    # draw from a generator of their own, so that the solve's problem and the
+    # SfM scene after this phase are the ones the seed gave before
+    extra = (31, 33, 262_144) if gpu else (31, 33, 8_192)
+    other = np.random.default_rng([seed, 7])
+    max_err, timed = 0.0, {}
+    for O, g in [(O, rng) for O in sizes] + [(O, other) for O in extra]:
+        ins = _ba_inputs(g, O, dev)
         out_k = (ba_blocks.ba_blocks_cuda if gpu else ba_blocks.ba_blocks_plain)(*ins, intr)
         out_p = ba_blocks.ba_blocks_plain(*ins, intr)
         sync(dev)
@@ -500,23 +567,26 @@ def phase_ba_blocks(dev, rng, gpu: bool):
             check(torch.equal(out_k[key], out_p[key]), f"ba_blocks O={O} {key}: max err {err}")
             max_err = max(max_err, err)
         log(f"  ba_blocks O={O}: 8 outputs bit-equal")
-    reps = 50 if gpu else 1
-    kern = ba_blocks.ba_blocks_cuda if gpu else ba_blocks.ba_blocks_plain
-    kernel_ms = time_ms(lambda: kern(*ins, intr), dev, reps=reps, warmup=3 if gpu else 0)
-    plain_ms = time_ms(lambda: ba_blocks.ba_blocks_plain(*ins, intr), dev, reps=5 if gpu else 1,
-                       warmup=1 if gpu else 0)
+        del out_k, out_p
+        if O in (sizes[-1], extra[-1]):
+            timed[O] = _ba_times(ba_blocks, ins, intr, dev, gpu)
+            log(f"  ba_blocks O={O}: " + " ".join(f"{k}={v}" for k, v in timed[O].items()))
+    past_l2 = timed[extra[-1]]
     return {
         "name": "ba_blocks",
         "route": "cuda",
         "source": "tpu3drec_torch/ops/csrc/ba_blocks.cu",
         "replaces": "tpu3drec/ops/ba_blocks.py:32",
-        "shape": [sizes[-1]],
+        "shape": past_l2["shape"],
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": (BA_FLOATS_IN + BA_FLOATS_OUT) * 4 * sizes[-1] / HBM_BYTES_S * 1e3,
+        "ms": past_l2["ms"],
+        "call_ms": past_l2["call_ms"],
+        "plain_ms": past_l2["plain_ms"],
+        "bound_ms": past_l2["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes these blocks
+        # the solve's size: its 28 MB fit in L2, so its share of the bound is not read
+        "in_l2": timed[sizes[-1]],
     }
 
 
@@ -656,8 +726,8 @@ def phase_sfm(dev, rng, gpu: bool, tmp: str, ph):
     main["shape"] = [Pm, Km, b.shape[1], D]
     main["splits"] = (_split_info("matcher", matcher.launch_plan(Pm, Km, b.shape[1], dev), dev)
                       if gpu else None)
-    main["ms"] = time_ms(lambda: kern(a, b, v), dev, reps=20 if gpu else 1,
-                         warmup=2 if gpu else 0)
+    main["ms"], main["call_ms"] = kernel_times(lambda: kern(a, b, v), MATCHER_KERNELS, dev,
+                                               reps=20 if gpu else 1, warmup=2 if gpu else 0)
     main["plain_ms"] = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
                                reps=3 if gpu else 1, warmup=1 if gpu else 0)
     main["bound_ms"], main["bound_by"] = _matcher_bound(Pm, Km, b.shape[1], D)
@@ -758,7 +828,7 @@ def main(argv=None) -> int:
                                       t_w2c[:2].astype(np.float32), cfg, device=dev)
             grid = pts.reshape(2, h, w, 3)[:, ::2, ::2].reshape(2, -1, 3)
             row = phase_kernel(dev, rng, grid[0].cpu().numpy(), grid[1].cpu().numpy(), gpu)
-            ph.info.update({k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+            ph.info.update({k: row[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
                                                "library_ms", "max_abs_err")})
 
         # ---- the main path: counts zeroed here, read after phase 5 --------
@@ -851,14 +921,14 @@ def main(argv=None) -> int:
         # ---- phase 6: the matcher kernel against its plain version ---------
         with Phase("matcher_vs_plain") as ph:
             m_row = phase_matcher(dev, rng, gpu)
-            ph.info.update({k: m_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                 "library_ms", "max_abs_err")})
+            ph.info.update({k: m_row[k] for k in ("shape", "ms", "call_ms", "plain_ms",
+                                                 "bound_ms", "library_ms", "max_abs_err")})
 
         # ---- phase 7: BA blocks against plain, then the block-path solve ---
         with Phase("ba_blocks_vs_plain") as ph:
-            b_row = phase_ba_blocks(dev, rng, gpu)
-            ph.info.update({k: b_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                 "max_abs_err")})
+            b_row = phase_ba_blocks(dev, rng, gpu, args.seed)
+            ph.info.update({k: b_row[k] for k in ("shape", "ms", "call_ms", "plain_ms",
+                                                 "bound_ms", "max_abs_err")})
         with Phase("ba_solve") as ph:
             b_row["launches"], err = ba_solve_paths(dev, rng, gpu, ph)
             b_row["max_abs_err"] = max(b_row["max_abs_err"], err)

@@ -208,3 +208,51 @@ def test_ba_blocks_cuda_wrapper_refuses_cpu(rng):
     K, Rm, Xc, uv, w = _blocks_inputs(rng, 4)
     with pytest.raises(ValueError):
         ba_blocks.ba_blocks_cuda(*(torch.tensor(x) for x in (Xc, Rm, uv, w)), (1, 1, 0, 0))
+
+
+@pytest.mark.parametrize("O", [1, 3, 511, 513])
+def test_ba_blocks_output_layout(O, rng):
+    """The kernel's one output buffer: eight regions in the plain version's
+    order and shapes, each on a 16-byte boundary, none overlapping, and no
+    more padding between them than the alignment needs."""
+    regions, total = ba_blocks.output_layout(O)
+    K, Rm, Xc, uv, w = _blocks_inputs(rng, O)
+    plain = ba_blocks.ba_blocks_plain(*(torch.tensor(x) for x in (Xc, Rm, uv, w)),
+                                      ba_blocks.intrinsics_of(K))
+    assert [key for key, *_ in regions] == list(plain)
+    end = 0
+    for key, off, k, shape in regions:
+        assert shape == tuple(plain[key].shape), key
+        assert k * O == plain[key].numel(), key
+        assert (4 * off) % 16 == 0, key
+        assert end <= off < end + ba_blocks.ALIGN, key
+        end = off + k * O
+    assert total == end
+    assert total - sum(k * O for _, _, k, _ in regions) < 8 * ba_blocks.ALIGN
+
+
+def test_ba_blocks_count_guard():
+    """The kernel takes the count as a C int and forms 64-bit offsets: a
+    count past that int is refused, and one past the old 32-bit offset
+    limit (36 O < 2^31) is taken, though its layout reaches past 2^31."""
+    ba_blocks.check_count(ba_blocks.MAX_OBS)
+    with pytest.raises(ValueError):
+        ba_blocks.check_count(ba_blocks.MAX_OBS + 1)
+    O = 60_000_000
+    assert 36 * O >= 2**31
+    ba_blocks.check_count(O)
+    regions, total = ba_blocks.output_layout(O)
+    assert max(off + k * O for _, off, k, _ in regions) == total > 2**31
+
+
+@pytest.mark.parametrize("O", [1, 31, 33, 256, 257, 65_536, 262_144, 10**7])
+def test_ba_blocks_grid_covers_every_tile(O):
+    """The grid-stride launch: at least one block, at most WAVES waves of
+    the card's slots, and fewer blocks than the tiles need only then."""
+    sms, per_sm = 132, 6
+    cap = ba_blocks.WAVES * sms * per_sm
+    blocks = ba_blocks.grid_blocks(O, sms, per_sm)
+    tiles = -(-O // ba_blocks.TILE)
+    assert 1 <= blocks <= cap
+    assert blocks * ba_blocks.WARPS >= tiles or blocks == cap
+    assert (blocks - 1) * ba_blocks.WARPS < tiles

@@ -205,12 +205,21 @@ def test_matcher_splits_on_the_card(p, ka, kb, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 511, 513, 65_536])
-def test_ba_blocks_kernel_matches_plain_on_the_card(n):
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("n", [1, 31, 33, 511, 513, 65_536, 262_144])
+def test_ba_blocks_kernel_matches_plain_on_the_card(n, shift):
+    """With shift 1 every input starts 4 bytes past a 16-byte boundary,
+    which the kernel copies 4 bytes at a time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(2)
-    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")  # noqa: E731
+
+    def t(x):  # on the card, `shift` floats into a fresh buffer
+        x = np.asarray(x, np.float32)
+        flat = torch.empty(x.size + shift, dtype=torch.float32, device="cuda")
+        flat[shift:] = torch.as_tensor(x.ravel())
+        return flat[shift:].view(x.shape)
+
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     w_, x_, y_, z_ = q.T
@@ -222,6 +231,7 @@ def test_ba_blocks_kernel_matches_plain_on_the_card(n):
     Xc[0] = [1e-12, -1e-12, 0.0]  # the z clamp, with finite blocks
     ins = (t(Xc), t(R), t(rng.uniform([0, 0], [640, 480], size=(n, 2))),
            t(rng.uniform(0.1, 1.0, size=n)))
+    assert all(x.data_ptr() % 16 == 4 * shift for x in ins)
     intr = (500.0, 510.0, 320.0, 240.0)
     before = ba_blocks.launches
     out = ba_blocks.ba_blocks(*ins, intr)
@@ -230,3 +240,26 @@ def test_ba_blocks_kernel_matches_plain_on_the_card(n):
     assert ba_blocks.launches == before + 1
     for key in ref:
         assert torch.equal(out[key], ref[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 513])
+def test_ba_blocks_outputs_share_one_aligned_buffer_on_the_card(n):
+    """The eight outputs are views of one buffer: each starts on a 16-byte
+    boundary, none overlaps another, and together they lie inside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t = lambda *s: torch.rand(*s, dtype=torch.float32, device="cuda") + 1  # noqa: E731
+    out = ba_blocks.ba_blocks_cuda(t(n, 3), t(n, 3, 3), t(n, 2), t(n), (500.0, 510.0, 320.0, 240.0))
+    torch.cuda.synchronize()
+    storage = {x.untyped_storage().data_ptr() for x in out.values()}
+    assert len(storage) == 1
+    base = storage.pop()
+    nbytes = out["res"].untyped_storage().nbytes()
+    spans = sorted((x.data_ptr(), x.data_ptr() + 4 * x.numel()) for x in out.values())
+    for (start, end), (nxt, _) in zip(spans, spans[1:] + [(base + nbytes, None)]):
+        assert start % 16 == 0
+        assert base <= start < end <= nxt
+    for key, x in out.items():
+        assert x.is_contiguous(), key
+

@@ -53,33 +53,98 @@ def _check(Xc, Rmat, uv, w):
             raise ValueError(f"{name} lies on {x.device}, Xc on {Xc.device}")
 
 
+# The kernel's layout (csrc/ba_blocks.cu): a warp takes a tile of TILE
+# observations, WARPS warps a block, at most WAVES times the blocks the card
+# holds at once, and each output region of the one buffer starts on a
+# 16-byte boundary (ALIGN floats), which its 16-byte stores need.
+TILE = 32
+WARPS = 4
+WAVES = 2
+ALIGN = 4
+# The kernel takes the count as a C int and forms 64-bit offsets from it.
+MAX_OBS = 2**31 - 1
+
+
+def check_count(O: int) -> None:
+    """Refuse a count the kernel cannot index: its C int argument."""
+    if O > MAX_OBS:
+        raise ValueError(f"too many observations for the kernel's int count: {O} > {MAX_OBS}")
+
+
+def output_layout(O: int):
+    """Where the eight outputs lie in the kernel's one buffer of float32:
+    ([(key, offset, width, shape)], total floats). Regions follow in the
+    order res, U, V, W, bc, bp, Jc, Jp, each of O x width floats, each
+    starting at a multiple of ALIGN floats, without overlap."""
+    regions, end = [], 0
+    for key, k, shape in zip(_KEYS, _WIDTHS, _SHAPES):
+        off = -(-end // ALIGN) * ALIGN
+        regions.append((key, off, k, (O,) + shape))
+        end = off + k * O
+    return regions, end
+
+
+def grid_blocks(O: int, sms: int, blocks_per_sm: int) -> int:
+    """The kernel's grid: a block for every WARPS tiles of TILE observations,
+    at most WAVES times the blocks the card holds at once (the kernel loops
+    over the rest)."""
+    tiles = -(-O // TILE)
+    return max(1, min(-(-tiles // WARPS), WAVES * sms * blocks_per_sm))
+
+
+_fn = None
+_cards: dict[int, tuple[int, int]] = {}  # (SMs, blocks an SM holds) by device index
+
+
+def _kernel():
+    """The library's launch function, its C signature set once at load."""
+    global _fn
+    if _fn is None:
+        from tpu3drec_torch.ops.build import load
+
+        fn = load("ba_blocks").tpu3drec_ba_blocks
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _card(device: torch.device) -> tuple[int, int]:
+    """The SM count of the card and the kernel's blocks an SM holds, asked once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _cards:
+        from tpu3drec_torch.ops.build import blocks_per_sm
+
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _cards[index] = (sms, blocks_per_sm("ba_blocks", device))
+    return _cards[index]
+
+
 def ba_blocks_cuda(Xc, Rmat, uv, w, intrinsics):
-    """Launch the kernel; returns the dict of per-observation blocks."""
+    """Launch the kernel; returns the dict of per-observation blocks, views
+    of one buffer laid out by `output_layout`."""
     global launches
     _check(Xc, Rmat, uv, w)
     if Xc.device.type != "cuda":
         raise ValueError(f"ba_blocks_cuda takes CUDA tensors, got {Xc.device}")
     O = Xc.shape[0]
-    if 36 * O >= 2**31:
-        raise ValueError(f"too many observations for int32 indexing: {O}")
+    check_count(O)
     fx, fy, cx, cy = (float(v) for v in intrinsics)
-    from tpu3drec_torch.ops.build import load
-
-    lib = load("ba_blocks")
-    fn = lib.tpu3drec_ba_blocks
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p] * 9)
-    fn.restype = ctypes.c_int
+    fn = _kernel()
+    regions, total = output_layout(O)
     with torch.cuda.device(Xc.device):
-        ins = [x.contiguous() for x in (Xc, Rmat.reshape(O, 9), uv, w)]
-        outs = [torch.empty((O, k), dtype=torch.float32, device=Xc.device) for k in _WIDTHS]
+        blocks = grid_blocks(O, *_card(Xc.device))
+        ins = [x.contiguous() for x in (Xc, Rmat, uv, w)]
+        buf = torch.empty((total,), dtype=torch.float32, device=Xc.device)
+        base = buf.data_ptr()
         stream = torch.cuda.current_stream(Xc.device).cuda_stream
         rc = fn(*[x.data_ptr() for x in ins], O, fx, fy, cx, cy,
-                *[x.data_ptr() for x in outs], stream)
+                *[base + 4 * off for _, off, _, _ in regions], blocks, stream)
     if rc != 0:
         raise RuntimeError(f"ba_blocks kernel launch failed: cudaError {rc}")
     launches += 1
-    return {k: x.reshape((O,) + s) for k, x, s in zip(_KEYS, outs, _SHAPES)}
+    return {key: buf[off:off + k * O].view(shape) for key, off, k, shape in regions}
 
 
 def ba_blocks_plain(Xc, Rmat, uv, w, intrinsics):
