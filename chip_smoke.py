@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`tpu3drec_torch/`) on one card.
 
     python3 chip_smoke.py                 # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-8 at a tiny size on the CPU
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-9 at a tiny size on the CPU
 
 Phases, one flushed line each with its wall seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit
@@ -32,13 +32,22 @@ Phases, one flushed line each with its wall seconds:
      registered frames, ATE after similarity alignment, time per stage; the
      matcher's launches on the path held against the plain version on the
      descriptors and valid masks the path gave them, and timed at that shape
+  9. long sequence: the m00 loop of `tools/ate_torch.py` (150 frames of
+     640x192, rendered in worker processes) through
+     `pipelines/kitti.py::run_windowed_sfm` with 512 keypoints, window 12,
+     stride 7, depth priors, loop closure (gap 30), the switchable pose
+     graph and global BA; the seconds of each stage, ATE / RPE / coverage
+     against the JAX package's CPU row, failing above 2% of the trajectory
+     or below 0.95 coverage; every matcher launch of the run held against
+     the plain version, and the kernel timed at the global BA's
+     128 x 512 x 512
 A kernel's `ms` is its device time (`kernel_times`: torch.profiler's CUDA
 activity, summed over the wrapper's __global__s, mean per call) and its
 `call_ms` the wrapper's time per call (CUDA events around a loop of calls,
 host work included); `kernel_ms` mirrors `ms`. On the CPU `ms` is None.
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
-phase 8 for matcher) and read just after. The last lines are the kernels as
+phase 8 and again phase 9 for matcher) and read just after. The last lines are the kernels as
 one JSON object (with each __global__'s registers and spill bytes as ptxas
 reported them, and the reference splits the ICP-NN and matcher kernels
 used at their timed shapes), nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
@@ -759,6 +768,126 @@ def phase_sfm(dev, rng, gpu: bool, tmp: str, ph):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the long-sequence path through tools/ate_torch.py
+# ---------------------------------------------------------------------------
+
+# The JAX package's CPU row for m00/150, the port's target
+# (docs/ate_runs/m00_150_cpu.json, docs/ate_table.md), and the table's bound.
+M00_JAX_CPU = {"ate_pct_traj": 0.60, "coverage": 1.0}
+ATE_BOUND_PCT, COVERAGE_BOUND = 2.0, 0.95
+
+
+def _ate_tool():
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import ate_torch
+
+    return ate_torch
+
+
+def _rehearsal_sequence(dev):
+    """The CPU rehearsal of phase 9: tests/test_kitti_pipeline.py's
+    long_capture (16 frames of 256x192), rendered by the port's capture
+    simulator with its depth, window 8, stride 4, 256 keypoints."""
+    from tpu3drec_torch.data.capture_sim import CaptureSim, SimScene, render_frame
+    from tpu3drec_torch.pipelines.kitti import KittiRunConfig, evaluate_sequence, run_windowed_sfm
+    from tpu3drec_torch.utils.config import CameraConfig
+
+    t0 = time.perf_counter()
+    scene = SimScene.clustered(np.random.default_rng(11), n_landmarks=420, sats=4,
+                               extent=((-25, -6, 8), (40, 6, 60)))
+    cam = CameraConfig(fx=220.0, fy=220.0, cx=128.0, cy=96.0, width=256, height=192)
+    poses = CaptureSim(scene, cam=cam).fly(16, step=np.array([0.55, 0.0, 0.35]), yaw_rate=0.01)
+    frames = [render_frame(scene, R, t, cam) for R, t in poses]
+    images = np.stack([f[0].mean(-1).astype(np.float32) / 255.0 for f in frames])
+    depths = np.stack([f[1] for f in frames])
+    gt_T = np.tile(np.eye(4), (len(poses), 1, 1))
+    for k, (R, t) in enumerate(poses):
+        gt_T[k, :3, :3] = R.T
+        gt_T[k, :3, 3] = -R.T @ t
+    render_s = time.perf_counter() - t0
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float32)
+    cfg = KittiRunConfig(window=8, stride=4, max_keypoints=256, loop_closure=True, lc_min_gap=10)
+    state = {}
+    t0 = time.perf_counter()
+    Ts, _ = run_windowed_sfm(images, K, cfg, depth_maps=depths, debug_state=state, device=dev)
+    wall = time.perf_counter() - t0
+    m = {k: float(v) for k, v in evaluate_sequence(Ts, gt_T).items()}
+    m.update(seq="long_capture", frames=len(images), wall_s=wall, render_s=render_s,
+             ate_pct_traj=100.0 * m["ate_rms"] / m["traj_len"], stage_s=state["seconds"],
+             windows=len(state["window_seconds"]),
+             window_s=[None if w is None else sum(w.values()) for w in state["window_seconds"]],
+             window_stage_s=_ate_tool()._stage_sums(state["window_seconds"]),
+             closures=len(state["closures"]))
+    return m
+
+
+def phase_long_sequence(dev, gpu: bool, ph):
+    """The m00 loop on the card (the rehearsal's small sequence on the
+    CPU), every matcher launch recorded; returns (launches, the matcher's
+    long-sequence entry for the kernels line)."""
+    from tpu3drec_torch.ops import matcher
+
+    matcher.reset_launches()
+    with recording(matcher, "topk2_scores_batched") as calls:
+        if gpu:
+            m = _ate_tool().run_sequence("m00", 150, max_keypoints=512, window=12, stride=7,
+                                         depth_priors=True, device=dev)
+        else:
+            m = _rehearsal_sequence(dev)
+    launches = matcher.launches
+    st = m["stage_s"]
+    win = [w for w in m["window_s"] if w is not None]
+    log(f"  {m['seq']}/{m['frames']}: render {m['render_s']:.2f} s, detect {st['detect']:.2f} s, "
+        f"windows {st['windows']:.2f} s ({len(win)} of {m['windows']} windows, "
+        f"{min(win):.2f}-{max(win):.2f} s each, mean {np.mean(win):.2f} s)")
+    log(f"  {m['seq']}/{m['frames']}: windows by stage (summed): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in m["window_stage_s"].items()))
+    log(f"  {m['seq']}/{m['frames']}: stitch {st['stitch']:.3f} s, loop closure "
+        f"{st['loop_closure']:.3f} s ({m['closures']} closures), pose graph "
+        f"{st['pose_graph']:.3f} s, global BA {st['global_ba']:.3f} s, wall {m['wall_s']:.2f} s")
+    target = (f"; the JAX package on the CPU: ATE {M00_JAX_CPU['ate_pct_traj']}%, coverage "
+              f"{M00_JAX_CPU['coverage']} (docs/ate_runs/m00_150_cpu.json)" if gpu else "")
+    log(f"  {m['seq']}/{m['frames']}: ATE {m['ate_rms']} m = {m['ate_pct_traj']}% of "
+        f"{m['traj_len']} m, RPE {m['rpe_trans']} m / {m['rpe_rot']} rad, coverage "
+        f"{m['coverage']}{target}")
+    if gpu:
+        check(m["ate_pct_traj"] <= ATE_BOUND_PCT and m["coverage"] >= COVERAGE_BOUND,
+              f"m00/150: ATE {m['ate_pct_traj']}% (bound {ATE_BOUND_PCT}%), coverage "
+              f"{m['coverage']} (bound {COVERAGE_BOUND})")
+        check(launches >= 2, f"the matcher kernel was launched {launches} times")
+    else:  # tests/test_kitti_pipeline.py's bars
+        check(m["ate_pct_traj"] < 5.0 and m["coverage"] > 0.9, f"long_capture: {m}")
+    # every launch of the run against the plain version on its own inputs,
+    # then the kernel timed at the largest shape the run gave it
+    shapes = {}
+    for args, _ in calls:
+        key = "x".join(str(d) for d in (args[0].shape[0], args[0].shape[1], args[1].shape[1]))
+        shapes[key] = shapes.get(key, 0) + 1
+    long_seq = {"launches": launches, "calls_by_shape": shapes,
+                "max_abs_err": hold_against_plain(calls, matcher.topk2_scores_batched_plain,
+                                                  "matcher (long sequence)")}
+    a, b, v = max((c[0] for c in calls), key=lambda x: x[0].shape[0])
+    P, Ka, D = a.shape
+    kern = matcher.topk2_scores_batched_cuda if gpu else matcher.topk2_scores_batched_plain
+    long_seq["shape"] = [P, Ka, b.shape[1], D]
+    long_seq["splits"] = (_split_info("matcher", matcher.launch_plan(P, Ka, b.shape[1], dev), dev)
+                          if gpu else None)
+    long_seq["ms"], long_seq["call_ms"] = kernel_times(
+        lambda: kern(a, b, v), MATCHER_KERNELS, dev, reps=20 if gpu else 1, warmup=2 if gpu else 0)
+    long_seq["plain_ms"] = time_ms(lambda: matcher.topk2_scores_batched_plain(a, b, v), dev,
+                                   reps=3 if gpu else 1, warmup=1 if gpu else 0)
+    long_seq["bound_ms"], long_seq["bound_by"] = _matcher_bound(P, Ka, b.shape[1], D)
+    long_seq["library_ms"] = _matcher_library_ms(a, b, dev) if gpu else None
+    del calls[:]
+    ph.info.update(seq=m["seq"], frames=m["frames"], ate=m["ate_rms"],
+                   ate_pct=m["ate_pct_traj"], coverage=m["coverage"], wall_s=round(m["wall_s"], 2),
+                   render_s=round(m["render_s"], 2), matcher_launches=launches,
+                   matcher_calls_vs_plain=f"{sum(shapes.values())} bit-equal at {shapes}")
+    long_seq["run"] = m
+    return launches, long_seq
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -766,7 +895,7 @@ def phase_sfm(dev, rng, gpu: bool, tmp: str, ph):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-8 at a tiny size on the CPU with the plain versions")
+                    help="run phases 3-9 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     gpu = not args.rehearse_cpu
@@ -778,6 +907,9 @@ def main(argv=None) -> int:
     smi = None
     with Phase("device") as ph:
         import_port()
+        import scipy  # the long-sequence path needs it (rotations): missing is an error
+
+        ph.info["scipy"] = scipy.__version__
         if gpu:
             dev = torch.device("cuda", 0)
             ph.info["kind"] = repr(torch.cuda.get_device_name(0))
@@ -935,9 +1067,18 @@ def main(argv=None) -> int:
 
         # ---- phase 8: SfM through the pipeline -----------------------------
         with Phase("sfm") as ph:
-            m_row["launches"], main = phase_sfm(dev, rng, gpu, tmp, ph)
+            n_sfm, main = phase_sfm(dev, rng, gpu, tmp, ph)
             m_row["max_abs_err"] = max(m_row["max_abs_err"], main.pop("max_abs_err"))
             m_row["main_path"] = main
+
+        # ---- phase 9: the long-sequence path --------------------------------
+        with Phase("long_sequence") as ph:
+            n_long, long_seq = phase_long_sequence(dev, gpu, ph)
+            m_row["max_abs_err"] = max(m_row["max_abs_err"], long_seq["max_abs_err"])
+            m_row["long_sequence"] = long_seq
+        # each path's count was zeroed just before it and read just after
+        m_row["launches"] = n_sfm + n_long
+        m_row["launches_by_path"] = {"sfm": n_sfm, "long_sequence": n_long}
 
     rows = [row, m_row, b_row]
     for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):

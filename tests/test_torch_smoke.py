@@ -1,11 +1,11 @@
 """The port's smoke script and import rules, checked on the CPU.
 
-* `chip_smoke.py --rehearse-cpu` runs phases 3-8 at a tiny size with the
+* `chip_smoke.py --rehearse-cpu` runs phases 3-9 at a tiny size with the
   plain versions and exits 0.
 * Without a card, and in a directory that holds `chip_smoke.py` and
   nothing else of the repo, it exits non-zero and prints no result.
-* Neither the port nor the script imports JAX, the JAX package, PIL or cv2
-  at module level, or `torch.utils.cpp_extension`.
+* Neither the port, the script nor `tools/ate_torch.py` imports JAX, the
+  JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
 * On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
   equal their plain versions bit for bit. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
@@ -48,7 +48,7 @@ def test_rehearsal_on_cpu():
     for k in kernels:
         assert keys <= set(k), (k["name"], keys - set(k))
     for phase in ("kernel_vs_plain", "fusion", "icp", "matcher_vs_plain",
-                  "ba_blocks_vs_plain", "ba_solve", "sfm"):
+                  "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence"):
         assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
 
 
@@ -77,7 +77,7 @@ _FORBIDDEN = [
 
 
 def _sources():
-    out = [SMOKE]
+    out = [SMOKE, os.path.join(ROOT, "tools", "ate_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
     return out
@@ -170,6 +170,46 @@ def test_matcher_kernel_matches_plain_on_the_card(p, ka, kb, d):
     # the same summation order over d, each product and sum rounded alone
     assert torch.equal(best, pbest)
     assert torch.equal(top2, ptop2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 17, 64, 128])
+def test_matcher_long_sequence_shapes_on_the_card(p):
+    """The long-sequence path's shapes: a bridging pair (P = 1), loop-closure
+    candidates (P <= 64) and the global BA's chunks (P = 128), 512
+    keypoints, each frame's valid rows a ragged prefix as the detector pads
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(_unit(rng, p, 512, 128), device="cuda")
+    b = torch.as_tensor(_unit(rng, p, 512, 128), device="cuda")
+    v = torch.as_tensor(np.arange(512)[None] < rng.integers(200, 513, (p, 1)), device="cuda")
+    before = matcher.launches
+    best, top2 = matcher.topk2_scores_batched(a, b, v)
+    pbest, ptop2 = matcher.topk2_scores_batched_plain(a, b, v)
+    torch.cuda.synchronize()
+    assert matcher.launches == before + 1
+    assert torch.equal(best, pbest)
+    assert torch.equal(top2, ptop2)
+
+
+@pytest.mark.gpu
+def test_matcher_repeated_pairs_on_the_card():
+    """P = 128 with every pair the same, as `sfm/global_refine.py` pads a
+    short chunk with its first pair: every row equals the plain version's
+    and each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(6)
+    a = torch.as_tensor(_unit(rng, 1, 512, 128), device="cuda").expand(128, -1, -1).contiguous()
+    b = torch.as_tensor(_unit(rng, 1, 512, 128), device="cuda").expand(128, -1, -1).contiguous()
+    v = torch.as_tensor(np.arange(512) < 431, device="cuda")[None].expand(128, -1).contiguous()
+    best, top2 = matcher.topk2_scores_batched(a, b, v)
+    pbest, ptop2 = matcher.topk2_scores_batched_plain(a, b, v)
+    torch.cuda.synchronize()
+    assert torch.equal(best, pbest) and torch.equal(top2, ptop2)
+    assert bool((best == best[:1]).all()) and bool((top2 == top2[:1]).all())
 
 
 @pytest.mark.gpu

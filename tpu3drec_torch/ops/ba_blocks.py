@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from tpu3drec_torch.utils.device import FORWARD_AD_LOCK
+
 # Kernel launches since the last reset: chip_smoke.py reads it to show that
 # the main path went through the kernel.
 launches = 0
@@ -217,6 +219,7 @@ def local_jacobians_reference(Xc, Rmat, uv, K):
 
     z6 = torch.zeros(6, dtype=Xc.dtype, device=Xc.device)
     z3 = torch.zeros(3, dtype=Xc.dtype, device=Xc.device)
-    Jc = vmap(lambda xc, uvi: jacfwd(res_of_delta)(z6, xc, uvi))(Xc, uv)
-    Jp = vmap(lambda xc, Ri, uvi: jacfwd(res_of_eps)(z3, xc, Ri, uvi))(Xc, Rmat, uv)
+    with FORWARD_AD_LOCK:
+        Jc = vmap(lambda xc, uvi: jacfwd(res_of_delta)(z6, xc, uvi))(Xc, uv)
+        Jp = vmap(lambda xc, Ri, uvi: jacfwd(res_of_eps)(z3, xc, Ri, uvi))(Xc, Rmat, uv)
     return Jc, Jp

@@ -6,6 +6,7 @@ the map-building subcommands), with the same flags and defaults:
   icp-fuse   two clouds + T_data.txt -> merged PLY
   ply2bt     PLY -> octomap .bt
   sfm        image directory -> pose txt + sparse PLY (incremental SfM)
+  kitti-eval KITTI-layout sequence -> windowed SfM + ATE/RPE against its poses
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
 on the card; ``--device cpu`` asks for the CPU.
@@ -102,6 +103,36 @@ def _cmd_sfm(args):
     print(f"registered {len(rec.poses)}/{len(paths)} frames, {len(rec.points)} landmarks")
 
 
+def _cmd_kitti_eval(args):
+    from tpu3drec_torch.data.kitti_odom import KittiOdometryDataset
+    from tpu3drec_torch.pipelines.kitti import (
+        KittiRunConfig, evaluate_sequence, run_windowed_sfm)
+
+    ds = KittiOdometryDataset(args.root, args.sequence)
+    n = args.frames or ds.num_frames()
+    print(f"loading {n} frames of sequence {args.sequence} ...")
+    if args.width and not args.height:
+        # default --height from the native aspect ratio so a lone --width
+        # neither resizes to (width, 0) nor distorts the image
+        h0, w0 = ds.load_gray(args.start).shape[:2]
+        args.height = max(1, round(h0 * args.width / w0))
+    images = ds.load_sequence(start=args.start, count=n,
+                              size=(args.width, args.height) if args.width else None)
+    K = ds.calib()
+    if args.width:
+        h0, w0 = ds.load_gray(args.start).shape[:2]
+        K = K.copy()
+        K[0] *= args.width / w0   # fx, cx scale with width
+        K[1] *= args.height / h0  # fy, cy scale with height
+    cfg = KittiRunConfig(window=args.window, stride=args.stride,
+                         max_keypoints=args.max_keypoints, verbose=True,
+                         parallel_windows=args.parallel_windows)
+    Ts, _ = run_windowed_sfm(images, K, cfg, device=args.device)
+    gt = ds.gt_poses()[args.start:args.start + n]
+    m = evaluate_sequence(Ts, gt)
+    print({k: round(float(v), 4) for k, v in m.items()})
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu3drec_torch")
     p.add_argument("--device", default=None,
@@ -148,6 +179,21 @@ def main(argv=None):
     q.add_argument("--out-poses", dest="out_poses", default="poses.txt")
     q.add_argument("--out-ply", dest="out_ply", default="sparse.ply")
     q.set_defaults(fn=_cmd_sfm)
+
+    q = sub.add_parser("kitti-eval", help="windowed SfM + ATE on a KITTI sequence")
+    q.add_argument("root", help="KITTI odometry root (sequences/, poses/)")
+    q.add_argument("--sequence", default="00")
+    q.add_argument("--start", type=int, default=0)
+    q.add_argument("--frames", type=int, default=0)
+    q.add_argument("--width", type=int, default=0, help="downscale width (0=native)")
+    q.add_argument("--height", type=int, default=0)
+    q.add_argument("--window", type=int, default=12)
+    q.add_argument("--stride", type=int, default=7)
+    q.add_argument("--max-keypoints", dest="max_keypoints", type=int, default=512)
+    q.add_argument("--parallel-windows", dest="parallel_windows", type=int,
+                   default=1, help="reconstruct N windows concurrently (threads on "
+                   "the one device)")
+    q.set_defaults(fn=_cmd_kitti_eval)
 
     args = p.parse_args(argv)
     return args.fn(args)

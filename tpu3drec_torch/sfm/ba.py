@@ -31,7 +31,7 @@ from torch.func import jacfwd, vmap
 from tpu3drec_torch.core import fp
 from tpu3drec_torch.core.se3 import axis_angle_to_matrix, matrix_to_axis_angle
 from tpu3drec_torch.ops.ba_blocks import ba_blocks, intrinsics_of
-from tpu3drec_torch.utils.device import resolve_device
+from tpu3drec_torch.utils.device import FORWARD_AD_LOCK, resolve_device
 
 
 class BAProblem(NamedTuple):
@@ -110,11 +110,13 @@ def _obs_jacobians(p: BAProblem):
     point, i = 2, or 3 with depth rows."""
     cams = p.cam_params[p.cam_idx]
     pts = p.points[p.pt_idx]
-    if p.depth is not None:
-        wd = torch.as_tensor(p.depth_weight, dtype=p.uv.dtype, device=p.uv.device)
-        jac = jacfwd(_residual_one_depth, argnums=(0, 1))
-        return vmap(jac, in_dims=(0, 0, None, 0, 0, None))(cams, pts, p.K, p.uv, p.depth, wd)
-    return vmap(jacfwd(_project_one, argnums=(0, 1)), in_dims=(0, 0, None))(cams, pts, p.K)
+    with FORWARD_AD_LOCK:
+        if p.depth is not None:
+            wd = torch.as_tensor(p.depth_weight, dtype=p.uv.dtype, device=p.uv.device)
+            jac = jacfwd(_residual_one_depth, argnums=(0, 1))
+            return vmap(jac, in_dims=(0, 0, None, 0, 0, None))(cams, pts, p.K, p.uv, p.depth,
+                                                               wd)
+        return vmap(jacfwd(_project_one, argnums=(0, 1)), in_dims=(0, 0, None))(cams, pts, p.K)
 
 
 def _seg_sum(vals, idx, num):

@@ -19,6 +19,7 @@ from tpu3drec_torch.core import fp
 from tpu3drec_torch.core.se3 import axis_angle_to_matrix, matrix_to_axis_angle
 from tpu3drec_torch.sfm.sampling import draw_samples, seeded_generator
 from tpu3drec_torch.sfm.triangulate import reprojection_errors
+from tpu3drec_torch.utils.device import FORWARD_AD_LOCK
 
 
 def _diag_det(U: torch.Tensor, Vt: torch.Tensor) -> torch.Tensor:
@@ -97,7 +98,8 @@ def _gn_refine(R0, t0, X, xn, w, iters: int = 10):
     jac = jacfwd(residual)
     for _ in range(iters):
         r = residual(params)
-        J = jac(params)
+        with FORWARD_AD_LOCK:
+            J = jac(params)
         params = params - torch.linalg.solve(J.T @ J + 1e-8 * eye, J.T @ r)
     return axis_angle_to_matrix(params[:3]), params[3:]
 

@@ -25,6 +25,7 @@ from tpu3drec_torch.core import fp
 from tpu3drec_torch.core.se3 import axis_angle_to_matrix
 from tpu3drec_torch.sfm.sampling import draw_samples, seeded_generator
 from tpu3drec_torch.sfm.triangulate import projection_matrix, triangulate_two_view
+from tpu3drec_torch.utils.device import FORWARD_AD_LOCK
 
 
 def normalize_points(uv: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -119,7 +120,8 @@ def refine_relative_pose(R: torch.Tensor, t: torch.Tensor, x1: torch.Tensor, x2:
         sw = torch.sqrt(torch.where(sigma > 0.0, cauchy, w))
         z = torch.zeros(R.shape[0], 5, dtype=x1.dtype, device=x1.device)
         r = res_b(z, R, t, B, sw, h1, h2)                                   # (B, N)
-        J = jac_b(z, R, t, B, sw, h1, h2)                                   # (B, N, 5)
+        with FORWARD_AD_LOCK:
+            J = jac_b(z, R, t, B, sw, h1, h2)                               # (B, N, 5)
         JtJ = J.transpose(1, 2) @ J
         Jtr = (J.transpose(1, 2) @ r[..., None])[..., 0]
         delta = torch.linalg.solve(JtJ + 1e-8 * eye5, -Jtr)

@@ -2,7 +2,15 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# torch.func's forward-mode AD numbers its levels in process-wide state, so
+# jacfwd running in two threads at once corrupts the other's levels. Every
+# jacfwd evaluation of the port holds this lock; threads meet only where
+# `pipelines/kitti.py` reconstructs windows concurrently.
+FORWARD_AD_LOCK = threading.RLock()
 
 
 def resolve_device(device=None) -> torch.device:
