@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`tpu3drec_torch/`) on one card.
 
     python3 chip_smoke.py                 # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-9 at a tiny size on the CPU
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-10 at a tiny size on the CPU
 
 Phases, one flushed line each with its wall seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit
@@ -41,13 +41,30 @@ Phases, one flushed line each with its wall seconds:
      or below 0.95 coverage; every matcher launch of the run held against
      the plain version, and the kernel timed at the global BA's
      128 x 512 x 512
+ 10. monocular: 12 frames of 480x640 rendered in worker processes
+     (`tools/train_convergence_torch.py`'s scene and trajectory, the loss
+     config's K); the full MonodepthModel (ResNet18 depth + ResNet18 pose,
+     26.8M parameters) from the seed takes 10 GT-pose steps at batch 1, its
+     first held against the same step on the CPU (loss within 1e-4 relative;
+     the card's float32 gradients within half their norm of the step's
+     float64 gradients; the card's Adam update equal to the CPU's Adam on
+     the card's gradients), then one pose-net step; warm ms per step in float32 (IEEE) and
+     bfloat16 with peak memory; `infer_depth_maps` on the 12 frames at
+     480x640 and at 192x640 (batch 8), frames/s, one frame's depth held
+     against the CPU's (1e-4 relative); the inferred depth and the true
+     poses fused by `run_arrays` into PLY + .bt. No kernel of the port is on
+     this path (the nets are cuDNN convolutions); the line `monocular {...}`
+     before the kernels line carries its numbers, the card's name and its
+     power limit
 A kernel's `ms` is its device time (`kernel_times`: torch.profiler's CUDA
 activity, summed over the wrapper's __global__s, mean per call) and its
 `call_ms` the wrapper's time per call (CUDA events around a loop of calls,
 host work included); `kernel_ms` mirrors `ms`. On the CPU `ms` is None.
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
-phase 8 and again phase 9 for matcher) and read just after. The last lines are the kernels as
+phase 8 and again phase 9 for matcher) and read just after; phase 10,
+whose path runs none of them, zeroes all three and fails unless each is
+still 0 after it. The last lines are the kernels as
 one JSON object (with each __global__'s registers and spill bytes as ptxas
 reported them, and the reference splits the ICP-NN and matcher kernels
 used at their timed shapes), nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
@@ -60,6 +77,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -888,6 +906,229 @@ def phase_long_sequence(dev, gpu: bool, ph):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the monocular depth path (no kernel of the port on it)
+# ---------------------------------------------------------------------------
+
+
+def _convergence_tool():
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import train_convergence_torch
+
+    return train_convergence_torch
+
+
+def _tree_max_diff(a: dict, b: dict, keys) -> float:
+    return max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max()) for k in keys)
+
+
+def phase_monocular(dev, gpu: bool, tmp: str, ph, seed: int):
+    """Config 4 on the card: 12 rendered frames, 10 GT-pose steps and one
+    pose-net step of the full MonodepthModel at batch 1, the first step
+    held against the same step on the CPU, warm step times in float32 and
+    bfloat16, depth inference at two sizes (one frame held against the
+    CPU), and the inferred depth fused into a map. Returns the line's
+    numbers."""
+    import copy
+
+    import torch.nn.functional as F
+    from scipy.spatial.transform import Rotation
+
+    from tpu3drec_torch.models.training import (
+        TrainConfig, init_state, make_eval_depth, make_optimizer, make_train_step)
+    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
+    from tpu3drec_torch.pipelines import rgbd
+    from tpu3drec_torch.pipelines.monocular import infer_depth_maps
+    from tpu3drec_torch.utils.config import CameraConfig, MapConfig, RGBDPipelineConfig
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    kernels = (icp_nn, matcher, ba_blocks)
+    for k in kernels:
+        k.reset_launches()
+    h, w, frames, steps, timed = (480, 640, 12, 10, 7) if gpu else (64, 96, 4, 3, 1)
+    tool = _convergence_tool()
+    t0 = time.perf_counter()
+    rgbs, gt_depth, poses = tool.make_dataset(h, w, n_frames=frames, workers=8 if gpu else 2)
+    render_s = time.perf_counter() - t0
+    rows = [tool.relative_pose_rows(poses, f, f - 1) + tool.relative_pose_rows(poses, f, f + 1)
+            for f in range(1, frames - 1)]
+    out = {"size": f"{h}x{w}", "frames": frames, "render_s": round(render_s, 2)}
+
+    def batch_at(i):  # target frame i + 1, batch 1 (the reference's default)
+        aa_p, t_p, aa_n, t_n = rows[i]
+        return {"target": rgbs[i + 1: i + 2], "prev": rgbs[i: i + 1], "next": rgbs[i + 2: i + 3],
+                "gt_axisangle": np.stack([aa_p, aa_n])[None],
+                "gt_translation": np.stack([t_p, t_n])[None]}
+
+    cfg = TrainConfig(height=h, width=w, use_gt_pose=True)
+    model, state = init_state(seed, cfg, 1000, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    # the first step on the card and on the CPU: same weights, batch, noise
+    cpu_model, cpu_state = init_state(seed, cfg, 1000, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    noise = np.random.default_rng(seed).standard_normal((2, 1, h, w)).astype(np.float32)
+    b0 = batch_at(0)
+    before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    cpu_state, cpu_loss, _ = step_fn(cpu_state, b0, noise=noise)
+    cpu_step_s = time.perf_counter() - t0
+    state, loss, _ = step_fn(state, b0, noise=noise)
+    sync(dev)
+    lr = cfg.learning_rate
+    sd, cpu_sd = model.state_dict(), cpu_model.state_dict()
+    stats = [k for k in sd if "running_" in k]
+    card_p, cpu_p = dict(model.named_parameters()), dict(cpu_model.named_parameters())
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    # the backward: which tensors got a gradient, and how far the card's and
+    # the CPU's float32 gradients are from the same step's in float64 (on
+    # the card), as a share of the gradient's norm. At this step float32's
+    # rounding reaches the gradients magnified: measured on an H100 0.208
+    # through cuDNN's convolutions, 0.021 through PyTorch's own CUDA ones,
+    # 0.022 on the CPU (tools/grad_accuracy_torch.py); a wrong backward is
+    # off by the gradient's own size
+    with_grad = [k for k, p in card_p.items() if p.grad is not None]
+    ref_model, ref_state = init_state(seed, cfg, 1000, device=dev)
+    ref_model.load_state_dict(before, strict=False)
+    ref_model.double()
+    step_fn(ref_state, b0, noise=noise)
+    g64 = {k: p.grad.cpu() for k, p in ref_model.named_parameters() if p.grad is not None}
+    del ref_model, ref_state
+
+    def grad_err(grads):
+        return math.sqrt(sum(float((grads[k].grad.cpu().double() - g64[k]).square().sum())
+                             for k in with_grad) / sum(float(g.square().sum())
+                                                       for g in g64.values()))
+
+    grad_err_card, grad_err_cpu = grad_err(card_p), grad_err(cpu_p)
+    # Adam: the card's update against torch's single-tensor Adam on the CPU
+    # fed the card's own gradients, within 1e-3 of lr plus 4 float32 ulps
+    replay = {k: before[k].clone().requires_grad_(True) for k in with_grad}
+    for k, r in replay.items():
+        r.grad = card_p[k].grad.detach().cpu()
+    make_optimizer(cfg, list(replay.values())).step()
+    ulp = torch.finfo(torch.float32).eps
+    adam_excess = max(float(((sd[k].cpu() - r.detach()).abs()
+                             - (1e-3 * lr + 4 * ulp * r.detach().abs())).max())
+                      for k, r in replay.items())
+    # the updates against the CPU's: the same tensors moved; the elements more
+    # than 1% of lr apart are reported (Adam's first step is lr times the sign
+    # of the gradient, which flips wherever the gradient is within float32's
+    # rounding of 0: measured 4.8% of the model here on an H100)
+    moved_apart = [k for k in card_p
+                   if (float((sd[k].cpu() - before[k]).abs().max()) > 0.5 * lr)
+                   != (float((cpu_sd[k] - before[k]).abs().max()) > 0.5 * lr)]
+    off = {k: int(((sd[k].cpu() - cpu_sd[k]).abs() > 1e-2 * lr).sum()) for k in card_p}
+    worst = max(off, key=lambda k: off[k] / sd[k].numel())
+    out.update(loss=float(loss), cpu_loss=float(cpu_loss), loss_rel_diff=loss_rel,
+               grad_err_card=grad_err_card, grad_err_cpu=grad_err_cpu, adam_excess=adam_excess,
+               param_max_diff=_tree_max_diff(sd, cpu_sd, list(card_p)),
+               params_off=sum(off.values()),
+               worst_tensor_off=f"{worst} {off[worst]}/{sd[worst].numel()}",
+               batch_stats_max_diff=_tree_max_diff(sd, cpu_sd, stats),
+               lr=lr, cpu_step_s=round(cpu_step_s, 2), parameters=n_params)
+    log("  first step, card against CPU: " + json.dumps(
+        {k: out[k] for k in ("loss_rel_diff", "grad_err_card", "grad_err_cpu", "adam_excess",
+                             "param_max_diff", "params_off", "worst_tensor_off",
+                             "batch_stats_max_diff")}))
+    check(np.isfinite(float(loss)), f"loss {float(loss)}")
+    check(loss_rel <= 1e-4, f"card and CPU losses differ by {loss_rel} relative")
+    check(out["batch_stats_max_diff"] <= 1e-4,
+          f"batch stats differ by {out['batch_stats_max_diff']}")
+    check(with_grad == [k for k, p in cpu_p.items() if p.grad is not None] == list(g64),
+          "the card, the CPU and the float64 step gave gradients to different tensors")
+    check(grad_err_card <= 0.5, f"the card's gradients are {grad_err_card} of their norm from "
+          f"float64's (the CPU's {grad_err_cpu})")
+    check(adam_excess <= 0, f"the card's Adam update is {adam_excess} past the CPU's on the "
+          "card's gradients")
+    check(not moved_apart, f"moved on one device only: {moved_apart}")
+    del before, replay, cpu_model, cpu_state
+
+    # the remaining GT-pose steps, the last `timed` of them timed
+    def timed_steps(st, fn, first, n_warm, n_timed, rng):
+        for i in range(first, first + n_warm):
+            st, _, _ = fn(st, batch_at(i % len(rows)), rng)
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses = []
+
+        def run():
+            nonlocal st
+            for i in range(first + n_warm, first + n_warm + n_timed):
+                st, l_, _ = fn(st, batch_at(i % len(rows)), rng)
+                losses.append(l_)
+
+        ms = time_ms(run, dev, reps=1, warmup=0) / n_timed
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else None
+        return st, ms, peak, [float(x) for x in losses]
+
+    state, ms32, peak32, losses = timed_steps(state, step_fn, 1, steps - 1 - timed, timed, gen)
+    check(state.step == steps and all(np.isfinite(losses)), f"losses {losses}")
+    out.update(steps=state.step, last_loss=losses[-1], train_ms_f32=ms32, peak_gib_f32=peak32)
+
+    # one pose-net step on the same model (the pose net's first gradients)
+    pcfg = TrainConfig(height=h, width=w)
+    state, ploss, _ = make_train_step(pcfg)(state, batch_at(steps % len(rows)), gen)
+    check(np.isfinite(float(ploss)), f"pose-net loss {float(ploss)}")
+    out.update(pose_net_loss=float(ploss))
+
+    # bfloat16: a model of its own, warm steps timed
+    bcfg = TrainConfig(height=h, width=w, use_gt_pose=True, compute_dtype="bfloat16")
+    _, bstate = init_state(seed, bcfg, 1000, device=dev)
+    bstate, ms16, peak16, blosses = timed_steps(bstate, make_train_step(bcfg), 0, 2, timed, gen)
+    check(all(np.isfinite(blosses)), f"bf16 losses {blosses}")
+    out.update(train_ms_bf16=ms16, peak_gib_bf16=peak16, bf16_last_loss=blosses[-1])
+    del bstate
+
+    # serving: depth of the 12 frames at 480x640, and at 192x640 (batch 8)
+    u8 = (rgbs * 255).round().astype(np.uint8)
+    small = F.interpolate(torch.as_tensor(rgbs).permute(0, 3, 1, 2), size=(h * 2 // 5, w),
+                          mode="bilinear", align_corners=False, antialias=True)
+    small = small.permute(0, 2, 3, 1).contiguous().numpy()
+    for name, imgs in ((f"{h}x{w}", u8), (f"{h * 2 // 5}x{w}", small)):
+        icfg = TrainConfig(height=imgs.shape[1], width=imgs.shape[2])
+        infer_depth_maps(model, imgs, icfg, batch=8)  # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        depth = infer_depth_maps(model, imgs, icfg, batch=8)
+        secs = time.perf_counter() - t0
+        check(depth.shape == (frames,) + imgs.shape[1:3] and np.isfinite(depth).all()
+              and (depth > 0).all(), f"depth {depth.shape} at {name}")
+        out[f"infer_fps_{name}"] = frames / secs
+        if imgs is u8:
+            served = depth
+    cpu_model = copy.deepcopy(model).cpu()
+    one = make_eval_depth(cpu_model, cfg)(torch.as_tensor(u8[:1].astype(np.float32) / 255.0))
+    depth_rel = float(np.abs(served[0] - one[0].numpy()).max() / np.abs(one[0].numpy()).max())
+    out["depth_rel_diff"] = depth_rel
+    check(depth_rel <= 1e-4, f"card and CPU depth differ by {depth_rel} relative")
+
+    # fusion: the inferred depth and the ground-truth poses -> PLY + .bt
+    q = np.stack([Rotation.from_matrix(R.astype(np.float64)).as_quat() for R, _ in poses])
+    t = np.stack([tv for _, tv in poses])
+    fcfg = RGBDPipelineConfig(
+        camera=CameraConfig(fx=cfg.loss.fx, fy=cfg.loss.fy, cx=cfg.loss.cx, cy=cfg.loss.cy,
+                            width=w, height=h),
+        map=MapConfig(voxel_res=0.1, ply_binary=True),
+        out_ply=os.path.join(tmp, "mono.ply"), out_bt=os.path.join(tmp, "mono.bt"))
+    res = rgbd.run_arrays(served, q.astype(np.float32), t.astype(np.float32), fcfg, device=dev)
+    pts, _ = read_ply(fcfg.out_ply)
+    check(res.n_points > 0 and pts.shape == (res.n_points, 3) and np.isfinite(pts).all(),
+          f"fused map holds {pts.shape}")
+    check(res.n_voxels > 0 and os.path.getsize(fcfg.out_bt) > 0, "empty .bt")
+    out.update(fused_points=res.n_points, fused_voxels=res.n_voxels,
+               run_arrays_s=round(res.seconds, 3))
+    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    check(not any(out["kernel_launches"].values()),
+          f"the monocular path launched kernels: {out['kernel_launches']}")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, dict)})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -895,7 +1136,7 @@ def phase_long_sequence(dev, gpu: bool, ph):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-9 at a tiny size on the CPU with the plain versions")
+                    help="run phases 3-10 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     gpu = not args.rehearse_cpu
@@ -1080,6 +1321,10 @@ def main(argv=None) -> int:
         m_row["launches"] = n_sfm + n_long
         m_row["launches_by_path"] = {"sfm": n_sfm, "long_sequence": n_long}
 
+        # ---- phase 10: the monocular depth path ----------------------------
+        with Phase("monocular") as ph:
+            mono = phase_monocular(dev, gpu, tmp, ph, args.seed)
+
     rows = [row, m_row, b_row]
     for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):
         # registers and spill bytes of each __global__, from ptxas's report
@@ -1088,6 +1333,8 @@ def main(argv=None) -> int:
         r["ok"] = True
         if gpu:
             check(r["launches"] > 0, f"the main path never launched {r['name']}")
+    mono.update(device=torch.cuda.get_device_name(0) if gpu else "cpu", nvidia_smi=smi)
+    log("monocular " + json.dumps(mono))
     log(json.dumps({"kernels": rows}))
     if not gpu:
         log(json.dumps({"ok": True, "rehearsal": "cpu"}))

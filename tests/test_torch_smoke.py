@@ -1,13 +1,16 @@
 """The port's smoke script and import rules, checked on the CPU.
 
-* `chip_smoke.py --rehearse-cpu` runs phases 3-9 at a tiny size with the
+* `chip_smoke.py --rehearse-cpu` runs phases 3-10 at a tiny size with the
   plain versions and exits 0.
 * Without a card, and in a directory that holds `chip_smoke.py` and
   nothing else of the repo, it exits non-zero and prints no result.
-* Neither the port, the script nor `tools/ate_torch.py` imports JAX, the
+* Neither the port, the script nor the port's tools (`tools/ate_torch.py`,
+  `train_convergence_torch.py`, `trace_monocular.py`, `twin_runs_torch.py`,
+  `grad_accuracy_torch.py`) imports JAX, flax, optax, orbax, the
   JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
 * On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
-  equal their plain versions bit for bit. This file imports no JAX, so on a machine without it the test
+  equal their plain versions bit for bit, and a monodepth train step on the
+  card agrees with the same step on the CPU. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
   tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
 """
@@ -48,8 +51,14 @@ def test_rehearsal_on_cpu():
     for k in kernels:
         assert keys <= set(k), (k["name"], keys - set(k))
     for phase in ("kernel_vs_plain", "fusion", "icp", "matcher_vs_plain",
-                  "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence"):
+                  "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence", "monocular"):
         assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
+    assert lines[-3].startswith("monocular ")
+    mono = json.loads(lines[-3][len("monocular "):])
+    for key in ("loss_rel_diff", "train_ms_f32", "train_ms_bf16", "infer_fps_64x96",
+                "depth_rel_diff", "fused_points"):
+        assert key in mono, key
+    assert mono["fused_points"] > 0 and mono["steps"] == 3
 
 
 def test_no_card_is_an_error():
@@ -69,6 +78,7 @@ def test_script_alone_fails(tmp_path):
 
 _FORBIDDEN = [
     (re.compile(r"^\s*(import|from)\s+jax\b", re.M), "imports jax"),
+    (re.compile(r"^\s*(import|from)\s+(flax|optax|orbax)\b", re.M), "imports flax/optax/orbax"),
     (re.compile(r"^\s*(import|from)\s+tpu3drec(?!_torch)\b", re.M), "imports the JAX package"),
     (re.compile(r"\btpu3drec\."), "names a tpu3drec. module"),
     (re.compile(r"^(import|from)\s+(PIL|cv2)\b", re.M), "imports PIL/cv2 at module level"),
@@ -77,7 +87,11 @@ _FORBIDDEN = [
 
 
 def _sources():
-    out = [SMOKE, os.path.join(ROOT, "tools", "ate_torch.py")]
+    out = [SMOKE, os.path.join(ROOT, "tools", "ate_torch.py"),
+           os.path.join(ROOT, "tools", "train_convergence_torch.py"),
+           os.path.join(ROOT, "tools", "trace_monocular.py"),
+           os.path.join(ROOT, "tools", "twin_runs_torch.py"),
+           os.path.join(ROOT, "tools", "grad_accuracy_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
     return out
@@ -303,3 +317,53 @@ def test_ba_blocks_outputs_share_one_aligned_buffer_on_the_card(n):
     for key, x in out.items():
         assert x.is_contiguous(), key
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gt_pose", [True, False])
+def test_monodepth_step_card_matches_cpu(gt_pose):
+    """One train step of the full MonodepthModel (float32, IEEE on the
+    card) from the same seeded weights, batch and automask noise on the
+    card and on the CPU: loss within 1e-5 relative, batch statistics within
+    1e-5, the same tensors updated, and the card's update that of torch's
+    single-tensor Adam on the CPU fed the card's gradients (within 1e-3 of
+    lr plus 4 float32 ulps of the weight)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.models.training import (
+        TrainConfig, init_state, make_optimizer, make_train_step)
+
+    h, w, n = 64, 96, 2
+    rng = np.random.default_rng(0)
+    batch = {k: rng.uniform(size=(n, h, w, 3)).astype(np.float32)
+             for k in ("target", "prev", "next")}
+    batch["gt_axisangle"] = (rng.normal(size=(n, 2, 3)) * 0.05).astype(np.float32)
+    batch["gt_translation"] = (rng.normal(size=(n, 2, 3)) * 0.3).astype(np.float32)
+    noise = rng.normal(size=(2, n, h, w)).astype(np.float32)
+    cfg = TrainConfig(height=h, width=w, batch_size=n, use_gt_pose=gt_pose)
+    step = make_train_step(cfg)
+    results = []
+    for dev in ("cuda", "cpu"):
+        model, state = init_state(0, cfg, 10, device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        state, loss, _ = step(state, batch, noise=noise)
+        after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        results.append((float(loss), before, after))
+        if dev == "cuda":
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+    (lc, bc, ac), (lp, bp, ap) = results
+    for k in bc:
+        assert torch.equal(bc[k], bp[k]), k  # one seed, the same weights everywhere
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for k in ac:
+        if "running_" in k:
+            assert float((ac[k] - ap[k]).abs().max()) <= 1e-5, k
+        else:
+            assert bool((ac[k] != bc[k]).any()) == bool((ap[k] != bp[k]).any()), k
+    replay = {k: bc[k].clone().requires_grad_(True) for k in grads}
+    for k, r in replay.items():
+        r.grad = grads[k]
+    make_optimizer(cfg, list(replay.values())).step()
+    ulp = torch.finfo(torch.float32).eps
+    for k, r in replay.items():
+        r = r.detach()
+        assert bool(((ac[k] - r).abs() <= 1e-3 * cfg.learning_rate + 4 * ulp * r.abs()).all()), k

@@ -27,6 +27,13 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), whose derivative at a bound is one
+    half (``torch.maximum``/``torch.minimum`` split a tie); ``torch.clamp``'s
+    is one. The values are the same either way."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def sum_squares(x: torch.Tensor) -> torch.Tensor:
     """Sum of squares over the last axis, accumulated in order with fused
     multiply-adds."""

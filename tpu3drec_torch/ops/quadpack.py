@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu3drec_torch.core import fp
+
 
 def quad_pack(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, C) -> (..., H, W, 4C): channels [v(y,x), v(y,x+1),
@@ -53,8 +55,8 @@ def bilinear_sample_quad(qimg: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -
     """Bilinear sample with border clamping from a quad-packed (H, W, 4C)
     image at absolute pixel coordinates x, y (any shape) -> x.shape + (C,)."""
     H, W, _ = qimg.shape
-    x = torch.clamp(x, 0.0, W - 1.0)
-    y = torch.clamp(y, 0.0, H - 1.0)
+    x = fp.clip(x, 0.0, W - 1.0)  # jnp.clip's derivative at the border
+    y = fp.clip(y, 0.0, H - 1.0)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx = (x - x0)[..., None]

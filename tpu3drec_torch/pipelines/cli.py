@@ -7,6 +7,8 @@ the map-building subcommands), with the same flags and defaults:
   ply2bt     PLY -> octomap .bt
   sfm        image directory -> pose txt + sparse PLY (incremental SfM)
   kitti-eval KITTI-layout sequence -> windowed SfM + ATE/RPE against its poses
+  train-mono monodepth training from an InteriorNet (or, with --use-stereo,
+             KITTI raw) tree and split files
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
 on the card; ``--device cpu`` asks for the CPU.
@@ -133,6 +135,34 @@ def _cmd_kitti_eval(args):
     print({k: round(float(v), 4) for k, v in m.items()})
 
 
+def _cmd_train_mono(args):
+    from tpu3drec_torch.data.datasets import InteriorNetDataset, KittiRawDataset, read_split_file
+    from tpu3drec_torch.data.loader import TripletLoader
+    from tpu3drec_torch.models.training import TrainConfig
+    from tpu3drec_torch.pipelines.monocular import MonocularRunConfig, train
+
+    tcfg = TrainConfig(
+        height=args.height, width=args.width, batch_size=args.batch_size,
+        learning_rate=args.lr, num_epochs=args.epochs,
+        use_gt_pose=args.use_gt_pose, use_stereo=args.use_stereo,
+    )
+    # --use-stereo needs a side-partner frame: KITTI raw layout has one
+    # (image_02/image_03); InteriorNet is monocular-only
+    ds = (KittiRawDataset(args.data_path) if args.use_stereo
+          else InteriorNetDataset(args.data_path))
+    train_specs = read_split_file(args.split_train)
+    val_specs = read_split_file(args.split_val) if args.split_val else []
+    tl = TripletLoader(ds, train_specs, batch_size=args.batch_size,
+                       height=args.height, width=args.width,
+                       with_gt_pose=args.use_gt_pose,
+                       with_stereo=args.use_stereo)
+    vl = TripletLoader(ds, val_specs, batch_size=args.batch_size,
+                       height=args.height, width=args.width, augment=False,
+                       with_gt_depth=True) if val_specs else None
+    cfg = MonocularRunConfig(train=tcfg, log_dir=args.log_dir)
+    train(cfg, tl, vl, device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu3drec_torch")
     p.add_argument("--device", default=None,
@@ -194,6 +224,21 @@ def main(argv=None):
                    default=1, help="reconstruct N windows concurrently (threads on "
                    "the one device)")
     q.set_defaults(fn=_cmd_kitti_eval)
+
+    q = sub.add_parser("train-mono", help="monodepth training")
+    q.add_argument("--data-path", dest="data_path", required=True)
+    q.add_argument("--split-train", dest="split_train", required=True)
+    q.add_argument("--split-val", dest="split_val", default="")
+    q.add_argument("--height", type=int, default=480)
+    q.add_argument("--width", type=int, default=640)
+    q.add_argument("--batch-size", dest="batch_size", type=int, default=1)
+    q.add_argument("--lr", type=float, default=1e-5)
+    q.add_argument("--epochs", type=int, default=20)
+    q.add_argument("--use-gt-pose", dest="use_gt_pose", action="store_true")
+    q.add_argument("--use-stereo", dest="use_stereo", action="store_true",
+                   help="mono+stereo self-supervision (KITTI raw layout: image_02 + image_03)")
+    q.add_argument("--log-dir", dest="log_dir", default="runs/monocular")
+    q.set_defaults(fn=_cmd_train_mono)
 
     args = p.parse_args(argv)
     return args.fn(args)

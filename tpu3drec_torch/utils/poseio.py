@@ -5,6 +5,7 @@ contracts, with output byte-identical to the JAX package's.
    ``id, tx, ty, tz, qx, qy, qz, qw, image.png`` after one header line; the
    quaternion is xyzw and (R|t) is the COLMAP **world->camera** convention.
 2. 4x4 homogeneous ``T_data.txt`` from the ICP scale-correction step.
+3. InteriorNet ``cam0.ccam`` camera poses (read only).
 """
 
 from __future__ import annotations
@@ -73,3 +74,17 @@ def read_T_txt(path: str) -> np.ndarray:
 
 def write_T_txt(path: str, T) -> None:
     np.savetxt(path, np.asarray(T).reshape(4, 4), fmt="%.9f")
+
+
+def read_ccam(path: str) -> list[tuple[np.ndarray, np.ndarray]]:
+    """InteriorNet ``cam0.ccam``: per-frame (q_wxyz (4,), t (3,)) in file
+    order (columns 6:10 and 10:13), '#' lines skipped."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.split()]
+            out.append((np.array(vals[6:10]), np.array(vals[10:13])))
+    return out
