@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (`tpu3drec_torch/`) on one card.
 
     python3 chip_smoke.py                 # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-10 at a tiny size on the CPU
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-12 at a tiny size on the CPU
 
 Phases, one flushed line each with its wall seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit
   2. build: every kernel of the port, from the sources in this checkout
-     (`tpu3drec_torch/ops/csrc/*.cu`), one nvcc process per source, in parallel
+     (`tpu3drec_torch/ops/csrc/*.cu`), one nvcc process per source, in
+     parallel, then the host map-export library (`utils/csrc/native_io.cpp`)
   3. ICP-NN kernel vs plain: the ICP nearest-neighbour kernel against its
      plain PyTorch version at ragged shapes, with exact ties, and at the
      slice's shape (one 480x640 frame at stride 2 against another); times of
@@ -56,15 +57,39 @@ Phases, one flushed line each with its wall seconds:
      this path (the nets are cuDNN convolutions); the line `monocular {...}`
      before the kernels line carries its numbers, the card's name and its
      power limit
+ 11. stereo (configuration 3): PSMNet trained through the CLI (`train-stereo
+     --sim 4 --epochs 3` at StereoTrainConfig's published 256x512, batch 4,
+     max_disp 64, feat_ch 32); the first step of a seeded model on 8
+     rendered pairs (`tools/stereo_convergence_torch.py`'s scene) held against
+     the same step on the CPU (loss within 1e-4 relative, batch statistics
+     within 1e-4, the card's Adam update equal to the CPU's Adam on the
+     card's gradients) and its float32 gradients against a float64 run on
+     the card (within STEREO_GRAD_BOUND of their norm); warm ms per step in
+     float32 (IEEE) and bfloat16 with peak memory and kernels per step; the
+     CLI's trained model (`load_trained`) through `pipelines/stereo.run` on
+     12 pairs of 480x640 with the reference camera, batch 4, into PLY + .bt,
+     `infer_disparity` frames/s, one pair's disparity held against the CPU
+     (1e-4 relative); the line `stereo {...}`
+ 12. MVS: `run_mvs` on 12 rendered views of 480x640 (tests/test_mvs.py's
+     urban scene, the reference camera) with MvsConfig's defaults (96
+     planes, 4 sources, window 5) over the scene's depth range; seconds per
+     stage, sweep ms per view, the TSDF grid's dims and bytes, the mesh's
+     size, the share of mesh vertices within 3 voxels of the rendered
+     surface (>= 0.9), and one view's plane sweep held against the CPU's
+     (winning planes, n_valid, ZNCC and depth, as tests/test_torch_mvs.py
+     holds it against the JAX package's); the line `mvs {...}`
+Phase 4 also writes the `.bt` and the PLY of `run_arrays` with the writers'
+Python path (`run_arrays_s_python`, files byte-equal to the native ones) and
+an ASCII PLY of one frame's points by each backend (byte-equal).
 A kernel's `ms` is its device time (`kernel_times`: torch.profiler's CUDA
 activity, summed over the wrapper's __global__s, mean per call) and its
 `call_ms` the wrapper's time per call (CUDA events around a loop of calls,
 host work included); `kernel_ms` mirrors `ms`. On the CPU `ms` is None.
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
-phase 8 and again phase 9 for matcher) and read just after; phase 10,
-whose path runs none of them, zeroes all three and fails unless each is
-still 0 after it. The last lines are the kernels as
+phase 8 and again phase 9 for matcher) and read just after; phases 10, 11
+and 12, whose paths run none of them, each zero all three and fail unless
+each is still 0 after them. The last lines are the kernels as
 one JSON object (with each __global__'s registers and spill bytes as ptxas
 reported them, and the reference splits the ICP-NN and matcher kernels
 used at their timed shapes), nvidia-smi's line and `{"ok": true, "device": {...}}`. Any
@@ -95,6 +120,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
 NN_FLOP_PER_PAIR = 9  # the count the JAX package's cost model uses
+# Phase 11: the card's float32 gradients of the first stereo step against a
+# float64 run of it, as a share of the gradient's norm
+# (measured on an H100: 9.0e-4, the CPU's 1.1e-3; a wrong backward is off
+# by the gradient's own size)
+STEREO_GRAD_BOUND = 1e-2
 
 # The reference camera (CLI defaults) and the slice's frame size.
 FX, FY, CX, CY, W, H = 600.391, 600.079, 320.0, 240.0, 640, 480
@@ -305,6 +335,44 @@ def make_scene(rng, frames: int, h: int, w: int, fx, fy, cx, cy):
         qs.append(_quat_xyzw(R.T))
         ts.append(-R.T @ c)
     return depths, np.stack(Rs), np.stack(cs), np.stack(qs), np.stack(ts)
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def host_io_backends(depths, q, t, cfg, pts, dev, tmp: str):
+    """Phase 4's map export by both backends: `run_arrays` again with the
+    writers on ``backend="python"`` (its `.bt` and PLY byte-equal to the
+    native run's), and an ASCII PLY of ``pts`` by each backend, byte-equal.
+    Returns (the Python run's run_arrays seconds, the ASCII numbers)."""
+    import dataclasses
+    import functools
+
+    from tpu3drec_torch.pipelines import rgbd
+
+    pcfg = dataclasses.replace(cfg, out_ply=os.path.join(tmp, "map_py.ply"),
+                               out_bt=os.path.join(tmp, "map_py.bt"))
+    saved = rgbd.write_bt, rgbd.write_ply
+    rgbd.write_bt = functools.partial(rgbd.write_bt, backend="python")
+    rgbd.write_ply = functools.partial(rgbd.write_ply, backend="python")
+    try:
+        py = rgbd.run_arrays(depths, q, t, pcfg, device=dev)
+    finally:
+        rgbd.write_bt, rgbd.write_ply = saved
+    check(_same_bytes(cfg.out_bt, pcfg.out_bt), "native and Python .bt differ")
+    check(_same_bytes(cfg.out_ply, pcfg.out_ply), "the two runs' PLY differ")
+    paths = {b: os.path.join(tmp, f"ascii_{b}.ply") for b in ("auto", "python")}
+    secs = {}
+    for backend, path in paths.items():
+        t0 = time.perf_counter()
+        rgbd.write_ply(path, pts, backend=backend)
+        secs[backend] = time.perf_counter() - t0
+    check(_same_bytes(paths["auto"], paths["python"]), "native and Python ASCII PLY differ")
+    return py.seconds, {"ascii_ply_points": int(pts.shape[0]),
+                        "ascii_ply_s_native": round(secs["auto"], 3),
+                        "ascii_ply_s_python": round(secs["python"], 3)}
 
 
 # ---------------------------------------------------------------------------
@@ -1129,6 +1197,345 @@ def phase_monocular(dev, gpu: bool, tmp: str, ph, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: stereo, configuration 3 (no kernel of the port on it)
+# ---------------------------------------------------------------------------
+
+
+def _stereo_tool():
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import stereo_convergence_torch
+
+    return stereo_convergence_torch
+
+
+def device_launches(fn, dev) -> int | None:
+    """Kernels the card ran in one call of ``fn`` (torch.profiler's CUDA
+    activity); None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    sync(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync(dev)
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _look_at(eye, target=(0.0, 0.0, 0.0), up=(0.0, -1.0, 0.0)):
+    """world->cam (R, t) of a camera at ``eye`` looking at ``target`` (x
+    right, y down, z forward)."""
+    eye = np.asarray(eye, np.float64)
+    z = np.asarray(target, np.float64) - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(np.asarray(up, np.float64), z)
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z])
+    return R.astype(np.float32), (-R @ eye).astype(np.float32)
+
+
+def phase_stereo(dev, gpu: bool, tmp: str, ph, seed: int, pool):
+    """Config 3 on the card: PSMNet trained through the CLI (`train-stereo
+    --sim`) at StereoTrainConfig's published size, the first step held
+    against the CPU and a float64 run, warm step times in float32 and
+    bfloat16, then `pipelines/stereo.run` of the trained model on 12 pairs
+    at 480x640 with the reference camera into PLY + .bt. Frames are
+    rendered in ``pool`` (None: here). Returns the line's numbers."""
+    from scipy.spatial.transform import Rotation
+
+    from tpu3drec_torch.data.capture_sim import PlanarScene
+    from tpu3drec_torch.models.psmnet import stereo_infer
+    from tpu3drec_torch.models.psmnet_training import (
+        StereoTrainConfig, init_stereo_state, make_stereo_train_step, to_model)
+    from tpu3drec_torch.models.training import make_optimizer
+    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
+    from tpu3drec_torch.pipelines import cli, stereo
+    from tpu3drec_torch.utils.config import CameraConfig, MapConfig, RGBDPipelineConfig
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    kernels = (icp_nn, matcher, ba_blocks)
+    for k in kernels:
+        k.reset_launches()
+    tool = _stereo_tool()
+    # the published training size, and the reference camera's for inference
+    (th, tw, md, n_sim), (ih, iw, n_pairs) = (((256, 512, 64, 4), (H, W, 12)) if gpu
+                                              else ((32, 64, 16, 2), (48, 64, 3)))
+    out = {"train_size": f"{th}x{tw}", "batch": 4 if gpu else 2, "max_disp": md, "feat_ch": 32}
+    log_dir = os.path.join(tmp, "stereo")
+    device_flag = [] if gpu else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    cli.main(device_flag + ["train-stereo", "--sim", str(n_sim), "--height", str(th), "--width",
+                            str(tw), "--max-disp", str(md), "--batch-size", str(out["batch"]),
+                            "--epochs", "3", "--log-dir", log_dir])
+    out["cli_train_s"] = round(time.perf_counter() - t0, 2)
+    cfg = StereoTrainConfig(height=th, width=tw, batch_size=out["batch"], max_disp=md)
+    out["cli_steps"] = 3 * (n_sim // out["batch"])
+    check(os.path.exists(os.path.join(log_dir, "ckpt", f"{out['cli_steps']}.pt")),
+          f"train-stereo left no checkpoint of step {out['cli_steps']}")
+    trained = stereo.load_trained(log_dir, cfg, device=dev)
+
+    # the first step on the card, on the CPU and in float64 on the card
+    t0 = time.perf_counter()
+    lefts, rights, disps, masks = tool.make_dataset(th, tw, n_frames=8, pool=pool)
+    out["render_train_s"] = round(time.perf_counter() - t0, 2)
+    masks = masks * (disps < md - 1)
+    batch = {"left": lefts[:out["batch"]], "right": rights[:out["batch"]],
+             "disp": disps[:out["batch"]], "mask": masks[:out["batch"]]}
+    step_fn = make_stereo_train_step(cfg)
+    model, state = init_stereo_state(seed, cfg, device=dev)
+    cpu_model, cpu_state = init_stereo_state(seed, cfg, device="cpu")
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    cpu_state, cpu_loss = step_fn(cpu_state, batch)
+    out["cpu_step_s"] = round(time.perf_counter() - t0, 2)
+    state, loss = step_fn(state, batch)
+    sync(dev)
+    sd, cpu_sd = model.state_dict(), cpu_model.state_dict()
+    stats = [k for k in sd if "running_" in k]
+    card_p, cpu_p = dict(model.named_parameters()), dict(cpu_model.named_parameters())
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    ref_model, ref_state = init_stereo_state(seed, cfg, device=dev)
+    ref_model.double()
+    step_fn(ref_state, batch)
+    g64 = {k: p.grad.cpu() for k, p in ref_model.named_parameters()}
+    del ref_model, ref_state
+    norm64 = math.sqrt(sum(float(g.square().sum()) for g in g64.values()))
+
+    def grad_err(params):
+        return math.sqrt(sum(float((p.grad.cpu().double() - g64[k]).square().sum())
+                             for k, p in params.items())) / norm64
+
+    grad_err_card, grad_err_cpu = grad_err(card_p), grad_err(cpu_p)
+    replay = {k: before[k].clone().requires_grad_(True) for k in card_p}
+    for k, r in replay.items():
+        r.grad = card_p[k].grad.detach().cpu()
+    make_optimizer(cfg, list(replay.values())).step()
+    ulp = torch.finfo(torch.float32).eps
+    lr = cfg.learning_rate
+    adam_excess = max(float(((sd[k].cpu() - r.detach()).abs()
+                             - (1e-3 * lr + 4 * ulp * r.detach().abs())).max())
+                      for k, r in replay.items())
+    out.update(loss=float(loss), loss_rel_diff=loss_rel, grad_err_card=grad_err_card,
+               grad_err_cpu=grad_err_cpu, adam_excess=adam_excess,
+               batch_stats_max_diff=_tree_max_diff(sd, cpu_sd, stats),
+               parameters=sum(p.numel() for p in model.parameters()))
+    log("  stereo first step, card against CPU: " + json.dumps(
+        {k: out[k] for k in ("loss_rel_diff", "grad_err_card", "grad_err_cpu", "adam_excess",
+                             "batch_stats_max_diff")}))
+    check(np.isfinite(float(loss)), f"loss {float(loss)}")
+    check(loss_rel <= 1e-4, f"card and CPU stereo losses differ by {loss_rel} relative")
+    check(out["batch_stats_max_diff"] <= 1e-4,
+          f"stereo batch stats differ by {out['batch_stats_max_diff']}")
+    check(grad_err_card <= STEREO_GRAD_BOUND,
+          f"the card's stereo gradients are {grad_err_card} of their norm from float64's "
+          f"(the CPU's {grad_err_cpu})")
+    check(adam_excess <= 0, f"the card's Adam update is {adam_excess} past the CPU's on the "
+          "card's gradients")
+    del cpu_model, cpu_state, replay, before
+
+    # warm steps, float32 (IEEE) and bfloat16 each in a model of its own
+    n_warm, n_timed = (2, 5) if gpu else (0, 1)
+    batches = [{k: v[i * out["batch"]:(i + 1) * out["batch"]] for k, v in
+                (("left", lefts), ("right", rights), ("disp", disps), ("mask", masks))}
+               for i in range(len(lefts) // out["batch"])]
+    for dtype in ("float32", "bfloat16"):
+        dcfg = StereoTrainConfig(height=th, width=tw, batch_size=out["batch"], max_disp=md,
+                                 compute_dtype=dtype)
+        dfn = make_stereo_train_step(dcfg)
+        _, dstate = init_stereo_state(seed, dcfg, device=dev)
+        for i in range(n_warm):
+            dstate, _ = dfn(dstate, batches[i % len(batches)])
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses = []
+
+        def run():
+            nonlocal dstate
+            for i in range(n_timed):
+                dstate, l_ = dfn(dstate, batches[i % len(batches)])
+                losses.append(l_)
+
+        tag = "f32" if dtype == "float32" else "bf16"
+        out[f"train_ms_{tag}"] = time_ms(run, dev, reps=1, warmup=0) / n_timed
+        out[f"peak_gib_{tag}"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                                  if dev.type == "cuda" else None)
+
+        def one():
+            nonlocal dstate
+            dstate, _ = dfn(dstate, batches[0])
+
+        out[f"launches_per_step_{tag}"] = device_launches(one, dev)
+        check(all(np.isfinite(float(x)) for x in losses), f"{dtype} stereo losses {losses}")
+        del dstate
+
+    # inference: the trained model on 12 pairs at 480x640, reference camera
+    rng = np.random.default_rng(seed + 11)
+    scene = PlanarScene.urban(rng, n_boxes=12, extent=35.0)
+    fx, fy, cx, cy = (FX, FY, CX, CY) if gpu else (FX / 10, FY / 10, iw / 2, ih / 2)
+    cam = CameraConfig(fx=fx, fy=fy, cx=cx, cy=cy, width=iw, height=ih)
+    poses = []
+    for f in range(n_pairs):
+        R = Rotation.from_rotvec([0, 0.02 * f, 0]).as_matrix().astype(np.float32)
+        C = np.array([0.4 * f, -1.2, 0.8 * f], np.float32)
+        poses.append((R, (-R @ C).astype(np.float32)))
+    t0 = time.perf_counter()
+    il, ir, _, _ = tool.render_pairs(scene, poses, cam, 0.1, pool)
+    out["render_infer_s"] = round(time.perf_counter() - t0, 2)
+    stereo.infer_disparity(trained, il[:4], ir[:4], batch=4)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    disp = stereo.infer_disparity(trained, il, ir, batch=4)
+    out["infer_fps"] = n_pairs / (time.perf_counter() - t0)
+    check(disp.shape == (n_pairs, ih, iw) and np.isfinite(disp).all(), f"disparity {disp.shape}")
+    cpu_trained = stereo.load_trained(log_dir, cfg, device="cpu")
+    one_cpu = stereo_infer(cpu_trained, to_model(cpu_trained, il[:1], image=True),
+                           to_model(cpu_trained, ir[:1], image=True)).numpy()[0]
+    disp_rel = float(np.abs(disp[0] - one_cpu).max() / max(np.abs(one_cpu).max(), 1e-6))
+    out["disp_rel_diff"] = disp_rel
+    check(disp_rel <= 1e-4, f"card and CPU disparity differ by {disp_rel} relative")
+    q = np.stack([Rotation.from_matrix(R.astype(np.float64)).as_quat() for R, _ in poses])
+    t = np.stack([tv for _, tv in poses])
+    scfg = stereo.StereoPipelineConfig(
+        rgbd=RGBDPipelineConfig(camera=cam, map=MapConfig(voxel_res=0.1, ply_binary=True),
+                                out_ply=os.path.join(tmp, "stereo.ply"),
+                                out_bt=os.path.join(tmp, "stereo.bt")))
+    t0 = time.perf_counter()
+    res = stereo.run(scfg, il, ir, q.astype(np.float32), t.astype(np.float32), model=trained,
+                     device=dev)
+    out["run_s"] = round(time.perf_counter() - t0, 3)
+    pts, _ = read_ply(scfg.rgbd.out_ply)
+    check(res.n_points > 0 and pts.shape == (res.n_points, 3) and np.isfinite(pts).all(),
+          f"stereo map holds {pts.shape}")
+    check(res.n_voxels > 0 and os.path.getsize(scfg.rgbd.out_bt) > 0, "empty stereo .bt")
+    out.update(pairs=n_pairs, infer_size=f"{ih}x{iw}", fused_points=res.n_points,
+               fused_voxels=res.n_voxels)
+    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    check(not any(out["kernel_launches"].values()),
+          f"the stereo path launched kernels: {out['kernel_launches']}")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, dict)})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: dense MVS (no kernel of the port on it)
+# ---------------------------------------------------------------------------
+
+
+def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
+    """The dense MVS path on the card: `run_mvs` on 12 rendered views of the
+    urban scene at 480x640 with the reference camera and MvsConfig's
+    defaults (96 planes, 4 sources, window 5; the depth range set to the
+    scene's), the seconds of each stage, the grid and mesh sizes, the share
+    of mesh vertices within 3 voxels of the rendered surface (>= 0.9), and
+    one view's plane sweep held against the CPU. Returns the line's
+    numbers."""
+    from scipy.spatial import cKDTree
+
+    from tpu3drec_torch.data.capture_sim import PlanarScene
+    from tpu3drec_torch.mvs.plane_sweep import plane_sweep_depth
+    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
+    from tpu3drec_torch.pipelines.mvs import MvsConfig, run_mvs, select_source_views
+    from tpu3drec_torch.utils.config import CameraConfig
+    from tpu3drec_torch.utils.plyio import read_ply_mesh, write_ply_mesh
+
+    kernels = (icp_nn, matcher, ba_blocks)
+    for k in kernels:
+        k.reset_launches()
+    tool = _stereo_tool()
+    # the test scene of tests/test_mvs.py, seen by the reference camera
+    h, w, n_views = (H, W, 12) if gpu else (96, 128, 6)
+    fx, fy, cx, cy = (FX, FY, CX, CY) if gpu else (110.0, 110.0, 64.0, 48.0)
+    cam = CameraConfig(fx=fx, fy=fy, cx=cx, cy=cy, width=w, height=h)
+    scene = PlanarScene.urban(np.random.default_rng(7), n_boxes=6, extent=18.0)
+    poses = [_look_at(np.array([-2.5 + i * 6.0 / max(n_views - 1, 1), -1.2, -16.0 + 0.3 * i]),
+                      target=(0.0, 0.0, 12.0)) for i in range(n_views)]
+    t0 = time.perf_counter()
+    views = tool.render_jobs([(scene, R, t, cam, None) for R, t in poses], pool)
+    out = {"size": f"{h}x{w}", "views": n_views, "render_s": round(time.perf_counter() - t0, 2)}
+    imgs = np.stack([rgb.mean(-1).astype(np.float32) / 255.0 for rgb, _ in views])
+    gt = np.stack([d for _, d in views])
+    Rs = np.stack([R for R, _ in poses])
+    ts = np.stack([t for _, t in poses])
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    # the scene's depth range; at the rehearsal's 96x128 the voxels and the
+    # ZNCC bar of tests/test_mvs.py's end-to-end run (auto voxels of median
+    # depth / 100 are finer than 128 pixels across resolve)
+    cfg = (MvsConfig(d_min=4.0, d_max=60.0) if gpu
+           else MvsConfig(d_min=4.0, d_max=60.0, voxel_res=0.35, min_zncc=0.6))
+    out.update(n_planes=cfg.n_planes, n_src=cfg.n_src, window=cfg.window)
+    run_mvs(imgs[:3], K, Rs[:3], ts[:3], MvsConfig(d_min=4.0, d_max=60.0, n_planes=8),
+            device=dev)  # warm-up: the first call's allocations
+    sync(dev)
+    t0 = time.perf_counter()
+    res = run_mvs(imgs, K, Rs, ts, cfg, device=dev)
+    out["run_mvs_s"] = round(time.perf_counter() - t0, 3)
+    out.update({k: round(v, 3) for k, v in res["timings"].items()})
+    out["sweep_ms_per_view"] = 1e3 * res["timings"]["sweep_s"] / n_views
+    grid = res["grid"]
+    out.update(grid=list(grid.tsdf.shape), grid_res=round(grid.res, 4),
+               grid_bytes=2 * grid.tsdf.numel() * grid.tsdf.element_size(),
+               points=int(res["points"].shape[0]), verts=int(res["verts"].shape[0]),
+               faces=int(res["faces"].shape[0]))
+    check(out["faces"] > 200, f"the mesh has {out['faces']} faces")
+    mesh = os.path.join(tmp, "mvs_mesh.ply")
+    write_ply_mesh(mesh, res["verts"], res["faces"], binary=True)
+    v2, f2 = read_ply_mesh(mesh)
+    check(v2.shape == res["verts"].shape and f2.shape == res["faces"].shape, "mesh PLY")
+    # accuracy: mesh vertices against the rendered surface, as
+    # tests/test_mvs.py::test_mvs_pipeline_e2e measures it
+    gt_pts = []
+    for f in range(n_views):
+        v, u = np.nonzero(gt[f] > 0)
+        z = gt[f][v, u]
+        p = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], 1) - ts[f]
+        gt_pts.append(p @ Rs[f])
+    dist, _ = cKDTree(np.concatenate(gt_pts)).query(res["verts"], k=1)
+    out["within_3_voxels"] = float((dist < 3 * grid.res).mean())
+    check(out["within_3_voxels"] >= 0.9,
+          f"only {out['within_3_voxels']:.3f} of mesh vertices within 3 voxels of the surface")
+    # one view's sweep, card against CPU
+    ref = n_views // 2
+    src = select_source_views(Rs, ts, ref, cfg.n_src)
+    args = (imgs[ref], imgs[src], K, Rs[ref], ts[ref], Rs[src], ts[src], cfg.d_min, cfg.d_max)
+    t0 = time.perf_counter()
+    cd, cz, cn = (x.numpy() for x in plane_sweep_depth(*args, n_planes=cfg.n_planes,
+                                                        window=cfg.window, device="cpu"))
+    out["cpu_sweep_s"] = round(time.perf_counter() - t0, 2)
+    gd, gz, gn = (x.cpu().numpy() for x in plane_sweep_depth(*args, n_planes=cfg.n_planes,
+                                                              window=cfg.window, device=dev))
+    step = (1.0 / cfg.d_min - 1.0 / cfg.d_max) / (cfg.n_planes - 1)
+
+    def plane(d):
+        d = d.astype(np.float64)
+        return np.where(d > 0, (1.0 / np.maximum(d, 1e-12) - 1.0 / cfg.d_max) / step, -1.0)
+
+    agree = np.abs(plane(cd) - plane(gd)) < 0.5
+    rel = (np.abs(gd.astype(np.float64) - cd) / np.maximum(cd, 1e-6))[agree]
+    dz = np.abs(gz - cz)[agree]
+    out.update(sweep_winners_agree=float(agree.mean()), sweep_nvalid_equal=float((cn == gn).mean()),
+               sweep_zncc_p99=float(np.quantile(dz, 0.99)), sweep_zncc_max=float(dz.max()),
+               sweep_bit_equal=float(((gd == cd) & (gz == cz) & (gn == cn)).mean()),
+               sweep_depth_within_1e5=float((rel <= 1e-5).mean()),
+               sweep_depth_rel_p99=float(np.quantile(rel, 0.99)),
+               sweep_depth_rel_max=float(rel.max()))
+    keys = ("sweep_bit_equal", "sweep_winners_agree", "sweep_nvalid_equal", "sweep_zncc_p99",
+            "sweep_zncc_max", "sweep_depth_within_1e5", "sweep_depth_rel_p99",
+            "sweep_depth_rel_max")
+    log("  mvs sweep, card against CPU: " + json.dumps({k: out[k] for k in keys}))
+    # tests/test_torch_mvs.py's bounds for the port against the JAX package
+    check(out["sweep_winners_agree"] >= 0.995 and out["sweep_nvalid_equal"] >= 0.995
+          and out["sweep_zncc_p99"] <= 1e-4 and out["sweep_depth_within_1e5"] >= 0.95
+          and out["sweep_depth_rel_p99"] <= 1e-4, "card and CPU plane sweeps differ")
+    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    check(not any(out["kernel_launches"].values()),
+          f"the MVS path launched kernels: {out['kernel_launches']}")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, (dict, list))})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1136,7 +1543,7 @@ def phase_monocular(dev, gpu: bool, tmp: str, ph, seed: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-10 at a tiny size on the CPU with the plain versions")
+                    help="run phases 3-12 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     gpu = not args.rehearse_cpu
@@ -1179,9 +1586,15 @@ def main(argv=None) -> int:
     if gpu:
         with Phase("build") as ph:
             from tpu3drec_torch.ops import build
+            from tpu3drec_torch.utils import native
 
             libs = build.build()
             ph.info["kernels"] = ",".join(sorted(libs))
+            # the host map-export library too, so that phase 4 times the
+            # export and not its first call's compile
+            t0 = time.perf_counter()
+            native.load()
+            ph.info["host_library_s"] = round(time.perf_counter() - t0, 2)
         for name, text in sorted(build.build_logs.items()):
             for line in text.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
@@ -1242,10 +1655,12 @@ def main(argv=None) -> int:
                 return unique_voxels(voxelize(p, cfg.map.voxel_res), valid)[2]
 
             fuse_ms = time_ms(device_fusion, dev, reps=5 if gpu else 1)
+            py_s, ascii_s = host_io_backends(depths, q32, t32, cfg, res.points[: h * w], dev, tmp)
             ph.info.update(n_frames=res.n_frames, n_points=res.n_points,
                            n_voxels=res.n_voxels, run_arrays_s=round(res.seconds, 3),
-                           frame_err=err, device_fusion_ms=round(fuse_ms, 3),
-                           frames_per_s=round(frames / fuse_ms * 1e3, 1))
+                           run_arrays_s_python=round(py_s, 3), frame_err=err,
+                           device_fusion_ms=round(fuse_ms, 3),
+                           frames_per_s=round(frames / fuse_ms * 1e3, 1), **ascii_s)
             fused = res.points
 
         # ---- phase 5: ICP scale correction through the CLI -----------------
@@ -1325,6 +1740,18 @@ def main(argv=None) -> int:
         with Phase("monocular") as ph:
             mono = phase_monocular(dev, gpu, tmp, ph, args.seed)
 
+        # one pool of renderers for phases 11 and 12 (spawned once: each
+        # worker takes seconds to start); the rehearsal's frames are too
+        # small to pay for processes
+        with (_stereo_tool().render_pool(8) if gpu else contextlib.nullcontext()) as pool:
+            # ---- phase 11: stereo --------------------------------------------
+            with Phase("stereo") as ph:
+                stereo_row = phase_stereo(dev, gpu, tmp, ph, args.seed, pool)
+
+            # ---- phase 12: dense MVS -----------------------------------------
+            with Phase("mvs") as ph:
+                mvs_row = phase_mvs(dev, gpu, tmp, ph, args.seed, pool)
+
     rows = [row, m_row, b_row]
     for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):
         # registers and spill bytes of each __global__, from ptxas's report
@@ -1333,8 +1760,11 @@ def main(argv=None) -> int:
         r["ok"] = True
         if gpu:
             check(r["launches"] > 0, f"the main path never launched {r['name']}")
-    mono.update(device=torch.cuda.get_device_name(0) if gpu else "cpu", nvidia_smi=smi)
+    for line in (mono, stereo_row, mvs_row):
+        line.update(device=torch.cuda.get_device_name(0) if gpu else "cpu", nvidia_smi=smi)
     log("monocular " + json.dumps(mono))
+    log("stereo " + json.dumps(stereo_row))
+    log("mvs " + json.dumps(mvs_row))
     log(json.dumps({"kernels": rows}))
     if not gpu:
         log(json.dumps({"ok": True, "rehearsal": "cpu"}))

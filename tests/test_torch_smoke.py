@@ -1,16 +1,18 @@
 """The port's smoke script and import rules, checked on the CPU.
 
-* `chip_smoke.py --rehearse-cpu` runs phases 3-10 at a tiny size with the
+* `chip_smoke.py --rehearse-cpu` runs phases 3-12 at a tiny size with the
   plain versions and exits 0.
 * Without a card, and in a directory that holds `chip_smoke.py` and
   nothing else of the repo, it exits non-zero and prints no result.
-* Neither the port, the script nor the port's tools (`tools/ate_torch.py`,
-  `train_convergence_torch.py`, `trace_monocular.py`, `twin_runs_torch.py`,
-  `grad_accuracy_torch.py`) imports JAX, flax, optax, orbax, the
+* Neither the port (its Python, CUDA and C++ sources), the script nor the
+  port's tools (`tools/ate_torch.py`, `train_convergence_torch.py`,
+  `trace_monocular.py`, `twin_runs_torch.py`, `grad_accuracy_torch.py`,
+  `stereo_convergence_torch.py`, `trace_stereo_mvs.py`) imports JAX, flax, optax, orbax, the
   JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
 * On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
-  equal their plain versions bit for bit, and a monodepth train step on the
-  card agrees with the same step on the CPU. This file imports no JAX, so on a machine without it the test
+  equal their plain versions bit for bit, and a monodepth train step, a
+  PSMNet train step and a plane sweep on the card agree with the same on
+  the CPU. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
   tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
 """
@@ -51,14 +53,28 @@ def test_rehearsal_on_cpu():
     for k in kernels:
         assert keys <= set(k), (k["name"], keys - set(k))
     for phase in ("kernel_vs_plain", "fusion", "icp", "matcher_vs_plain",
-                  "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence", "monocular"):
+                  "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence", "monocular",
+                  "stereo", "mvs"):
         assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
-    assert lines[-3].startswith("monocular ")
-    mono = json.loads(lines[-3][len("monocular "):])
+    fusion = next(line for line in lines if line.startswith("[phase fusion] ok"))
+    for key in ("run_arrays_s=", "run_arrays_s_python=", "ascii_ply_s_native="):
+        assert key in fusion, key
+    assert [line.split(" ", 1)[0] for line in lines[-5:-2]] == ["monocular", "stereo", "mvs"]
+    mono, stereo, mvs = (json.loads(line.split(" ", 1)[1]) for line in lines[-5:-2])
     for key in ("loss_rel_diff", "train_ms_f32", "train_ms_bf16", "infer_fps_64x96",
                 "depth_rel_diff", "fused_points"):
         assert key in mono, key
     assert mono["fused_points"] > 0 and mono["steps"] == 3
+    for key in ("loss_rel_diff", "grad_err_card", "train_ms_f32", "train_ms_bf16", "infer_fps",
+                "disp_rel_diff", "fused_points"):
+        assert key in stereo, key
+    assert stereo["cli_steps"] == 3 and stereo["fused_points"] > 0
+    for key in ("sweep_s", "consist_s", "fuse_s", "mesh_s", "sweep_ms_per_view", "grid",
+                "grid_bytes", "verts", "faces", "within_3_voxels", "sweep_winners_agree"):
+        assert key in mvs, key
+    assert mvs["within_3_voxels"] >= 0.9
+    for line in (mono, stereo, mvs):
+        assert not any(line["kernel_launches"].values())
 
 
 def test_no_card_is_an_error():
@@ -91,9 +107,11 @@ def _sources():
            os.path.join(ROOT, "tools", "train_convergence_torch.py"),
            os.path.join(ROOT, "tools", "trace_monocular.py"),
            os.path.join(ROOT, "tools", "twin_runs_torch.py"),
-           os.path.join(ROOT, "tools", "grad_accuracy_torch.py")]
+           os.path.join(ROOT, "tools", "grad_accuracy_torch.py"),
+           os.path.join(ROOT, "tools", "stereo_convergence_torch.py"),
+           os.path.join(ROOT, "tools", "trace_stereo_mvs.py")]
     for d, _, files in os.walk(PORT):
-        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return out
 
 
@@ -367,3 +385,95 @@ def test_monodepth_step_card_matches_cpu(gt_pose):
     for k, r in replay.items():
         r = r.detach()
         assert bool(((ac[k] - r).abs() <= 1e-3 * cfg.learning_rate + 4 * ulp * r.abs()).all()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(64, 128), (36, 68)])
+def test_psmnet_step_card_matches_cpu(hw):
+    """One float32 (IEEE) PSMNet train step from the same seeded weights and
+    batch on the card and on the CPU: loss within 1e-4 relative, batch
+    statistics within 1e-4, and the card's update that of torch's
+    single-tensor Adam on the CPU fed the card's gradients; eval-mode
+    disparity within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.models.psmnet import stereo_infer
+    from tpu3drec_torch.models.psmnet_training import (
+        StereoTrainConfig, init_stereo_state, make_stereo_train_step, to_model)
+    from tpu3drec_torch.models.training import make_optimizer
+
+    h, w = hw
+    rng = np.random.default_rng(0)
+    batch = {"left": rng.uniform(size=(2, h, w, 3)), "right": rng.uniform(size=(2, h, w, 3)),
+             "disp": rng.uniform(0, 15, size=(2, 4 * (h // 4), 4 * (w // 4))),
+             "mask": (rng.uniform(size=(2, 4 * (h // 4), 4 * (w // 4))) > 0.2) * 1.0}
+    cfg = StereoTrainConfig(height=h, width=w, batch_size=2, max_disp=16, feat_ch=16)
+    step = make_stereo_train_step(cfg)
+    results = []
+    for dev in ("cuda", "cpu"):
+        model, state = init_stereo_state(0, cfg, device=dev)
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        disp = stereo_infer(model, to_model(model, batch["left"], image=True),
+                            to_model(model, batch["right"], image=True)).cpu()
+        state, loss = step(state, batch)
+        after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        results.append((float(loss), before, after, disp))
+        if dev == "cuda":
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    (lc, bc, ac, dc), (lp, bp, ap, dp) = results
+    assert float((dc - dp).abs().max()) <= 1e-4 * float(dp.abs().max())
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for k in ac:
+        if "running_" in k:
+            assert float((ac[k] - ap[k]).abs().max()) <= 1e-4, k
+    replay = {k: bc[k].clone().requires_grad_(True) for k in grads}
+    for k, r in replay.items():
+        r.grad = grads[k]
+    make_optimizer(cfg, list(replay.values())).step()
+    ulp = torch.finfo(torch.float32).eps
+    for k, r in replay.items():
+        r = r.detach()
+        assert bool(((ac[k] - r).abs() <= 1e-3 * cfg.learning_rate + 4 * ulp * r.abs()).all()), k
+
+
+@pytest.mark.gpu
+def test_plane_sweep_card_matches_cpu():
+    """A plane sweep of a textured random scene on the card and on the CPU,
+    held as tests/test_torch_mvs.py holds the port against the JAX package:
+    winning planes and n_valid on >= 99.5% of pixels, the winning ZNCC
+    within 1e-4 at p99, depth within 1e-5 relative on >= 95% of the pixels
+    whose winners agree and within 1e-4 at p99."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.mvs.plane_sweep import plane_sweep_depth
+
+    rng = np.random.default_rng(3)
+    h, w, f = 120, 160, 200.0  # a 0.3 m baseline at 10 m: 6 pixels exactly
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    # a textured fronto-parallel wall at 10 m seen from 5 cameras on a line
+    tex = rng.uniform(size=(h * 2, w * 2)).astype(np.float32)
+    Rs = np.tile(np.eye(3, dtype=np.float32), (5, 1, 1))
+    ts = np.array([[-0.3 * i, 0, 0] for i in range(5)], np.float32)
+    imgs = []
+    for t in ts:
+        shift = int(round(-t[0] * f / 10.0))
+        imgs.append(tex[h // 2: h // 2 + h, w // 2 + shift: w // 2 + shift + w])
+    imgs = np.stack(imgs)
+    args = (imgs[2], imgs[[0, 1, 3, 4]], K, Rs[2], ts[2], Rs[[0, 1, 3, 4]], ts[[0, 1, 3, 4]],
+            2.0, 40.0)
+    out = [tuple(x.cpu().numpy() for x in plane_sweep_depth(*args, n_planes=64, device=dev))
+           for dev in ("cuda", "cpu")]
+    (gd, gz, gn), (cd, cz, cn) = out
+    step = (1 / 2.0 - 1 / 40.0) / 63
+
+    def plane(d):
+        d = d.astype(np.float64)
+        return np.where(d > 0, (1 / np.maximum(d, 1e-12) - 1 / 40.0) / step, -1.0)
+
+    agree = np.abs(plane(gd) - plane(cd)) < 0.5
+    assert agree.mean() >= 0.995 and (gn == cn).mean() >= 0.995
+    assert np.quantile(np.abs(gz - cz)[agree], 0.99) <= 1e-4
+    rel = (np.abs(gd.astype(np.float64) - cd) / np.maximum(cd, 1e-6))[agree]
+    assert (rel <= 1e-5).mean() >= 0.95 and np.quantile(rel, 0.99) <= 1e-4
+    inner = (slice(10, -10), slice(10, -10))
+    assert np.median(np.abs(gd[inner] - 10.0)) < 0.5  # the wall

@@ -1,5 +1,7 @@
 """octomap ``.bt`` binary octree writer/reader (port of
-`tpu3drec/mapping/btio.py`, Python path).
+`tpu3drec/mapping/btio.py`). `write_bt` builds the tree in the native
+library (`utils/native.py`) or, with ``backend="python"``, here; both give
+the same bytes.
 
 Every insert of the reference's octomap converters was ``occupied=True``
 with no ray-casting, so the resulting tree is exactly "the set of touched
@@ -116,10 +118,22 @@ def _build_nodes(morton_sorted: np.ndarray, morton_free: np.ndarray | None = Non
 
 
 def write_bt(path: str, voxel_keys: np.ndarray, res: float,
-             free_keys: np.ndarray | None = None) -> int:
+             backend: str = "auto", free_keys: np.ndarray | None = None) -> int:
     """Write occupied voxel keys ((M, 3) int, signed floor(p/res) convention)
     as an octovis-compatible ``.bt``. Returns the node count.
-    ``free_keys`` adds carved free-space leaves (0b10 child codes)."""
+
+    ``backend``: "auto" builds the tree in the native library
+    (`utils/native.py`, the same bytes; it raises if the library cannot be
+    built) unless ``free_keys`` is given, as the JAX package does; "python"
+    uses this module. ``free_keys`` adds carved free-space leaves (0b10
+    child codes)."""
+    if backend not in ("auto", "python"):
+        raise ValueError(f"backend must be 'auto' or 'python', not {backend!r}")
+    if backend == "auto" and free_keys is None:
+        from tpu3drec_torch.utils import native
+
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        return native.bt_write_keys(path, np.asarray(voxel_keys, np.int32).reshape(-1, 3), res)
     keys = np.asarray(voxel_keys, dtype=np.int64) + _KEY_OFFSET
     if keys.size and (keys.min() < 0 or keys.max() >= (1 << 16)):
         raise ValueError("voxel keys exceed octomap depth-16 key range")

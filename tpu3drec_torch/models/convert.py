@@ -1,14 +1,16 @@
 """Weights from the JAX package's flax variables into the port's modules.
 
-The JAX package keeps a MonodepthModel's weights as nested dicts of arrays
-under flax's auto-names (``encoder/BasicBlock_3/Conv_1/kernel``); the
-port's modules store each module's convolutions in ``convs`` and batch
-norms in ``norms`` in flax's creation order, so one rule per name maps
-every key. Convolution kernels go from HWIO to OIHW; a batch norm's
-``scale``/``bias`` become ``weight``/``bias`` and its ``mean``/``var``
-``running_mean``/``running_var``. Works on any subtree the port has a
-module for (a ResNetEncoder's, a DepthDecoder's, a PoseNet's, a whole
-MonodepthModel's), given numpy arrays or anything ``np.asarray`` reads.
+The JAX package keeps a model's weights as nested dicts of arrays under
+flax's auto-names (``encoder/BasicBlock_3/Conv_1/kernel``,
+``FeatureExtractor_0/ConvBnRelu_7/BatchNorm_0/scale``); the port's modules
+store each module's convolutions in ``convs`` and batch norms in ``norms``
+in flax's creation order, so one rule per name maps every key.
+Convolution kernels go from HWIO to OIHW (2D) and from DHWIO to OIDHW
+(3D); a batch norm's ``scale``/``bias`` become ``weight``/``bias`` and its
+``mean``/``var`` ``running_mean``/``running_var``. Works on any subtree the
+port has a module for (a ResNetEncoder's, a DepthDecoder's, a PoseNet's, a
+whole MonodepthModel's or PSMNet's), given numpy arrays or anything
+``np.asarray`` reads.
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ _MODULE_RULES = [
     (re.compile(r"^BatchNorm_(\d+)$"), "norms.{0}"),
     (re.compile(r"^dispconv_(\d+)$"), "dispconvs.{0}"),
     (re.compile(r"^(encoder|decoder|pose_net)$"), "{0}"),
+    (re.compile(r"^FeatureExtractor_0$"), "features"),
+    (re.compile(r"^ConvBnRelu_(\d+)$"), "blocks.{0}"),
+    (re.compile(r"^Hourglass3D_(\d+)$"), "hourglasses.{0}"),
 ]
+# kernel layouts by rank: flax's (spatial..., in, out) -> torch's (out, in, spatial...)
+_KERNEL_AXES = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _LEAF_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight",
                "mean": "running_mean", "var": "running_var"}
 
@@ -60,7 +67,7 @@ def _to_torch(path: tuple, value) -> torch.Tensor:
     a = np.asarray(value)
     a = np.array(a, dtype=np.float64 if a.dtype == np.float64 else np.float32)  # a copy
     if path[-1] == "kernel":
-        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        a = a.transpose(_KERNEL_AXES[a.ndim])  # HWIO -> OIHW, DHWIO -> OIDHW
     return torch.from_numpy(np.ascontiguousarray(a))
 
 

@@ -27,7 +27,8 @@ _STAGES = {
 
 
 class BatchNorm(nn.Module):
-    """``flax.linen.BatchNorm`` over the channels of an NCHW tensor.
+    """``flax.linen.BatchNorm`` over the channels (dim 1) of an NCHW or
+    NCDHW tensor: the statistics reduce over every other dim.
 
     Not ``nn.BatchNorm2d``: flax keeps ``momentum`` 0.99 of the running
     statistics (torch keeps 0.9) and updates the running variance with the
@@ -46,9 +47,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0,) + tuple(range(2, x.ndim))
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.maximum((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+            mean = xf.mean(dim=dims)
+            var = torch.maximum((xf * xf).mean(dim=dims) - mean * mean,
                                 mean.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
@@ -57,7 +59,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        shape = (-1,) + (1,) * (x.ndim - 2)  # broadcast over the spatial dims
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

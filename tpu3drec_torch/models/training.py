@@ -89,13 +89,13 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
+def init_flax_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     """flax's initialisers: convolution kernels ``lecun_normal`` (a normal
     truncated at 2 standard deviations, scaled to variance 1 / fan_in),
     biases 0; batch norms scale 1, bias 0, running mean 0, variance 1."""
     for m in model.modules():
-        if isinstance(m, torch.nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            fan_in = m.in_channels * math.prod(m.kernel_size)
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             with torch.no_grad():
                 torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
@@ -112,14 +112,17 @@ def init_state(seed, cfg: TrainConfig, steps_per_epoch: int = 1000, device=None)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     model = MonodepthModel(depth_layers=cfg.depth_layers)
-    _init_params(model, gen)
+    init_flax_params(model, gen)
     model.to(dev)
     state = TrainState(model, make_optimizer(cfg, model.parameters()),
                        lr_schedule(cfg, steps_per_epoch))
     return model, state
 
 
-def _autocast(cfg: TrainConfig, dev: torch.device):
+def autocast(cfg, dev: torch.device):
+    """The nets' compute dtype of ``cfg`` (a `TrainConfig` or
+    `models/psmnet_training.py::StereoTrainConfig`): nothing for float32,
+    bf16 autocast for bfloat16."""
     if cfg.compute_dtype == "float32":
         return contextlib.nullcontext()
     if cfg.compute_dtype != "bfloat16":
@@ -137,7 +140,7 @@ def _forward_loss(model: MonodepthModel, batch: dict, cfg: TrainConfig, noise=No
     for the automask tiebreak (times 1e-5), or None for a constant.
     """
     target, prev, nxt = batch["target"], batch["prev"], batch["next"]
-    with _autocast(cfg, target.device):
+    with autocast(cfg, target.device):
         disps, pose_prev, pose_next = model.forward_train(
             target, prev, nxt, with_pose=not cfg.use_gt_pose)
     # loss math in (at least) f32 regardless of the nets' compute dtype
@@ -217,7 +220,7 @@ def make_eval_depth(model: MonodepthModel, cfg: TrainConfig):
 
     @torch.no_grad()
     def eval_depth(images: torch.Tensor) -> torch.Tensor:
-        with fp.ieee_fp32(), _autocast(cfg, images.device):
+        with fp.ieee_fp32(), autocast(cfg, images.device):
             disp0 = model.depth(images, train=False)[0]
         disp_full = resize_bilinear(disp0.float(), cfg.height, cfg.width)
         _, depth = disp_to_depth(disp_full[..., 0], cfg.loss.min_depth, cfg.loss.max_depth)

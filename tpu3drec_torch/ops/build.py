@@ -6,6 +6,8 @@ The libraries go to ``build/tpu3drec_torch/`` beside the package, under a
 name that carries a hash of the source and the flags, so a changed source
 is rebuilt and an unchanged one is loaded as it is. A missing ``nvcc`` or a
 failed build raises with the compiler's output; nothing falls back.
+`build_host` does the same for the host C++ map-export library
+(`utils/csrc/native_io.cpp`, `utils/native.py`) with one ``c++`` call.
 """
 
 from __future__ import annotations
@@ -133,6 +135,40 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: lib for name, (_, lib) in out.items()}
+
+
+HOST_CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
+
+def build_host(src: str) -> str:
+    """Compile the host C++ source ``src`` (no CUDA) into a shared library
+    in ``BUILD_DIR`` with one ``c++`` call, unless a library of the same
+    source and flags is there already; returns its path. Written to a
+    temporary file and renamed into place, so processes that build at once
+    never load a torn file. A missing compiler or a failed build raises with
+    the compiler's output."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(HOST_CXX_FLAGS).encode()).hexdigest()[:16]
+    name = os.path.splitext(os.path.basename(src))[0]
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(lib):
+        return lib
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no host C++ compiler (c++ or g++) to build {src}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp, src], capture_output=True,
+                              text=True, timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed on {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

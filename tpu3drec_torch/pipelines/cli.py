@@ -9,6 +9,9 @@ the map-building subcommands), with the same flags and defaults:
   kitti-eval KITTI-layout sequence -> windowed SfM + ATE/RPE against its poses
   train-mono monodepth training from an InteriorNet (or, with --use-stereo,
              KITTI raw) tree and split files
+  train-stereo PSMNet training on a left/ right/ disp/ directory, or on
+             stereo pairs ray-cast from the urban scene (--sim N)
+  mvs        posed images -> plane-sweep depth -> TSDF -> cleaned mesh PLY
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
 on the card; ``--device cpu`` asks for the CPU.
@@ -163,6 +166,93 @@ def _cmd_train_mono(args):
     train(cfg, tl, vl, device=args.device)
 
 
+def _sim_stereo_pairs(n: int, height: int, width: int, baseline: float, seed: int):
+    """``n`` rectified pairs with ground-truth disparity ray-cast from the
+    occluded urban scene (the JAX CLI's ``--sim``): (lefts, rights, disp,
+    mask)."""
+    from scipy.spatial.transform import Rotation as ScipyR
+
+    from tpu3drec_torch.data.capture_sim import PlanarScene, render_stereo_pairs
+    from tpu3drec_torch.utils.config import CameraConfig
+
+    rng = np.random.default_rng(seed)
+    scene = PlanarScene.urban(rng, n_boxes=12, extent=35.0)
+    cam = CameraConfig(fx=width * 0.9, fy=width * 0.9, cx=(width - 1) / 2,
+                       cy=(height - 1) / 2, width=width, height=height)
+    poses = []
+    for f in range(n):
+        R = ScipyR.from_rotvec([0, 0.02 * f, 0]).as_matrix().astype(np.float32)
+        C = np.array([0.4 * f, -1.2, 0.8 * f], np.float32)
+        poses.append((R, (-R @ C).astype(np.float32)))
+    return render_stereo_pairs(scene, poses, cam, baseline=baseline)
+
+
+def _cmd_train_stereo(args):
+    """PSMNet supervised training. Data: --data DIR with left/N.png,
+    right/N.png and disp/N.npy, or --sim N ray-cast stereo pairs."""
+    from tpu3drec_torch.models.psmnet_training import StereoTrainConfig
+    from tpu3drec_torch.pipelines.stereo import train
+
+    if args.sim:
+        lefts, rights, disp, mask = _sim_stereo_pairs(args.sim, args.height, args.width,
+                                                     args.baseline, args.seed)
+    else:
+        from PIL import Image
+
+        ls = sorted(glob.glob(os.path.join(args.data, "left", "*")))
+        lefts, rights, disp, mask = [], [], [], []
+        for lp in ls:
+            name = os.path.splitext(os.path.basename(lp))[0]
+            rp = glob.glob(os.path.join(args.data, "right", name + ".*"))[0]
+            d = np.load(os.path.join(args.data, "disp", name + ".npy")).astype(np.float32)
+            lefts.append(np.asarray(Image.open(lp), np.float32)[..., :3] / 255.0)
+            rights.append(np.asarray(Image.open(rp), np.float32)[..., :3] / 255.0)
+            disp.append(d)
+            mask.append((d > 0).astype(np.float32))
+        lefts, rights = np.stack(lefts), np.stack(rights)
+        disp, mask = np.stack(disp), np.stack(mask)
+
+    cfg = StereoTrainConfig(
+        learning_rate=args.lr, num_epochs=args.epochs, batch_size=args.batch_size,
+        height=lefts.shape[1], width=lefts.shape[2], max_disp=args.max_disp)
+    _, state, last = train(cfg, lefts, rights, disp, mask, log_dir=args.log_dir,
+                           seed=args.seed, device=args.device)
+    print(f"trained {state.step} steps, final loss {last:.4f} -> {args.log_dir}/ckpt")
+
+
+def _cmd_mvs(args):
+    """Dense MVS: posed images -> per-view depth -> TSDF -> cleaned mesh."""
+    from PIL import Image
+    from scipy.spatial.transform import Rotation as ScipyR
+
+    from tpu3drec_torch.pipelines.mvs import MvsConfig, run_mvs
+    from tpu3drec_torch.utils.plyio import write_ply, write_ply_mesh
+    from tpu3drec_torch.utils.poseio import read_pose_txt
+
+    paths = sorted(glob.glob(os.path.join(args.images, "*")))
+    imgs = np.stack([np.asarray(Image.open(p).convert("L"), np.float32) / 255.0
+                     for p in paths])
+    by_name = {r.image_name: r for r in read_pose_txt(args.poses)}
+    Rs, ts = [], []
+    for p in paths:
+        r = by_name.get(os.path.basename(p))
+        if r is None:
+            raise SystemExit(f"no pose for image {os.path.basename(p)}")
+        Rs.append(ScipyR.from_quat(r.q_xyzw).as_matrix())
+        ts.append(r.t)
+    Rs = np.stack(Rs).astype(np.float32)
+    ts = np.stack(ts).astype(np.float32)
+    K = np.array([[args.fx, 0, args.cx], [0, args.fy, args.cy], [0, 0, 1]], np.float32)
+    cfg = MvsConfig(n_src=args.n_src, n_planes=args.n_planes, d_min=args.d_min,
+                    d_max=args.d_max, voxel_res=args.voxel_res, verbose=True)
+    out = run_mvs(imgs, K, Rs, ts, cfg, device=args.device)
+    write_ply_mesh(args.out, out["verts"], out["faces"])
+    print(f"mesh: {out['verts'].shape[0]} verts, {out['faces'].shape[0]} faces -> {args.out}")
+    if args.out_points:
+        write_ply(args.out_points, out["points"])
+        print(f"point set: {out['points'].shape[0]} -> {args.out_points}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu3drec_torch")
     p.add_argument("--device", default=None,
@@ -239,6 +329,39 @@ def main(argv=None):
                    help="mono+stereo self-supervision (KITTI raw layout: image_02 + image_03)")
     q.add_argument("--log-dir", dest="log_dir", default="runs/monocular")
     q.set_defaults(fn=_cmd_train_mono)
+
+    q = sub.add_parser("train-stereo", help="PSMNet supervised training")
+    q.add_argument("--data", default="", help="dir with left/ right/ disp/")
+    q.add_argument("--sim", type=int, default=0,
+                   help="ray-cast N synthetic stereo pairs instead of --data")
+    q.add_argument("--height", type=int, default=192)
+    q.add_argument("--width", type=int, default=320)
+    q.add_argument("--baseline", type=float, default=0.1)
+    q.add_argument("--max-disp", dest="max_disp", type=int, default=64)
+    q.add_argument("--batch-size", dest="batch_size", type=int, default=2)
+    q.add_argument("--lr", type=float, default=1e-3)
+    q.add_argument("--epochs", type=int, default=10)
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--log-dir", dest="log_dir", default="runs/stereo")
+    q.set_defaults(fn=_cmd_train_stereo)
+
+    q = sub.add_parser("mvs", help="posed images -> dense depth + TSDF mesh")
+    q.add_argument("--images", required=True)
+    q.add_argument("--poses", required=True, help="pose txt (world->cam, "
+                   "same contract as `rgbd`)")
+    q.add_argument("--fx", type=float, default=600.391)
+    q.add_argument("--fy", type=float, default=600.079)
+    q.add_argument("--cx", type=float, default=320.0)
+    q.add_argument("--cy", type=float, default=240.0)
+    q.add_argument("--n-src", dest="n_src", type=int, default=4)
+    q.add_argument("--n-planes", dest="n_planes", type=int, default=64)
+    q.add_argument("--d-min", dest="d_min", type=float, default=1.0)
+    q.add_argument("--d-max", dest="d_max", type=float, default=80.0)
+    q.add_argument("--voxel-res", dest="voxel_res", type=float, default=0.0,
+                   help="0 = auto (median depth / 100)")
+    q.add_argument("--out", default="mesh.ply")
+    q.add_argument("--out-points", dest="out_points", default="")
+    q.set_defaults(fn=_cmd_mvs)
 
     args = p.parse_args(argv)
     return args.fn(args)
