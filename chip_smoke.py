@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`tpu3drec_torch/`) on one card.
 
     python3 chip_smoke.py                 # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-12 at a tiny size on the CPU
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-16 at a tiny size on the CPU
 
 Phases, one flushed line each with its wall seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit
@@ -78,6 +78,34 @@ Phases, one flushed line each with its wall seconds:
      surface (>= 0.9), and one view's plane sweep held against the CPU's
      (winning planes, n_valid, ZNCC and depth, as tests/test_torch_mvs.py
      holds it against the JAX package's); the line `mvs {...}`
+ 13. occupancy: phase 4's 16 frames stored as .npy depth through the CLI's
+     `occupancy` (the reference camera, 0.1 m, 128 samples, 50 m range):
+     seconds per scan split into the device scan and the device merge,
+     occupied and free voxels, peak memory; the first 2 frames through the
+     same CLI on the card and on the CPU, whose `.bt` files must be
+     byte-equal
+ 14. point-to-plane ICP: phase 5's 76,800-point cloud against a copy under
+     a known rigid motion, normals estimated (k=16), 15 iterations: the
+     transform within 1e-3 of the truth, 15 ICP-NN launches per call, each
+     held against the plain version bit for bit; a 4,800-point subsample on
+     the card and on the CPU (transforms within 1e-4, normals equal up to
+     sign on >= 99% within 1e-4); `estimate_normals` and `_icp_plane_core`
+     seconds; this path's launches join phase 5's in the kernels line
+ 15. serve: the port's C++ sender (`utils/csrc/stream_sender.cpp`, built
+     here with one `c++`) streams a capture blob of phase 4's 16 frames with
+     RGB to the CLI's `serve` at batch 4 in its own process, and to
+     `stream_fuse` in this one; the `.bt`, the PLY and the sorted points
+     equal `run_arrays` on the same frames; frames per second
+ 16. autonomy: `mission-sim` through the CLI (1200 ticks; exit 0 only when
+     the mission ends LANDED), ticks per second, its phases and trajectory
+     against a CPU run; `label_components`, `largest_blob`, `detect_rings`,
+     `match_templates` and `decode_marker` on 480x640 frames rendered with
+     numpy (a ring gate, a pad, a marker, a number board), on the card and
+     on the CPU: integer outputs equal, floats within stated tolerances
+Phases 13, 15 and 16 launch none of the kernels and fail unless every count
+is still 0 after them; their numbers, and phase 14's, are the lines
+`occupancy`, `point_to_plane`, `serve` and `autonomy` before the kernels
+line.
 Phase 4 also writes the `.bt` and the PLY of `run_arrays` with the writers'
 Python path (`run_arrays_s_python`, files byte-equal to the native ones) and
 an ASCII PLY of one frame's points by each backend (byte-equal).
@@ -101,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -240,23 +269,36 @@ def _clone(x):
 
 
 @contextlib.contextmanager
+def patched(owner, names, wrap):
+    """Replaces ``owner.<name>`` by ``wrap(name, original)`` for each name,
+    and puts the originals back on the way out."""
+    saved = {n: getattr(owner, n) for n in names}
+    for n in names:
+        setattr(owner, n, wrap(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(owner, n, fn)
+
+
+@contextlib.contextmanager
 def recording(module, name: str):
     """Passes every call of ``module.name`` through unchanged and keeps
     clones of its arguments and its result, so that what the main path's
     own launches returned can be held against the plain version on the
     inputs the path gave them."""
-    fn, calls = getattr(module, name), []
+    calls = []
 
-    def wrapped(*args):
-        out = fn(*args)
-        calls.append((_clone(args), _clone(out)))
-        return out
+    def wrap(_, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            calls.append((_clone(args), _clone(out)))
+            return out
+        return wrapped
 
-    setattr(module, name, wrapped)
-    try:
+    with patched(module, (name,), wrap):
         yield calls
-    finally:
-        setattr(module, name, fn)
 
 
 def hold_against_plain(calls, plain, name: str) -> float:
@@ -1003,15 +1045,12 @@ def phase_monocular(dev, gpu: bool, tmp: str, ph, seed: int):
 
     from tpu3drec_torch.models.training import (
         TrainConfig, init_state, make_eval_depth, make_optimizer, make_train_step)
-    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
     from tpu3drec_torch.pipelines import rgbd
     from tpu3drec_torch.pipelines.monocular import infer_depth_maps
     from tpu3drec_torch.utils.config import CameraConfig, MapConfig, RGBDPipelineConfig
     from tpu3drec_torch.utils.plyio import read_ply
 
-    kernels = (icp_nn, matcher, ba_blocks)
-    for k in kernels:
-        k.reset_launches()
+    _reset_kernel_counts()
     h, w, frames, steps, timed = (480, 640, 12, 10, 7) if gpu else (64, 96, 4, 3, 1)
     tool = _convergence_tool()
     t0 = time.perf_counter()
@@ -1188,7 +1227,7 @@ def phase_monocular(dev, gpu: bool, tmp: str, ph, seed: int):
     check(res.n_voxels > 0 and os.path.getsize(fcfg.out_bt) > 0, "empty .bt")
     out.update(fused_points=res.n_points, fused_voxels=res.n_voxels,
                run_arrays_s=round(res.seconds, 3))
-    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["kernel_launches"] = _kernel_counts()
     check(not any(out["kernel_launches"].values()),
           f"the monocular path launched kernels: {out['kernel_launches']}")
     ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
@@ -1247,14 +1286,11 @@ def phase_stereo(dev, gpu: bool, tmp: str, ph, seed: int, pool):
     from tpu3drec_torch.models.psmnet_training import (
         StereoTrainConfig, init_stereo_state, make_stereo_train_step, to_model)
     from tpu3drec_torch.models.training import make_optimizer
-    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
     from tpu3drec_torch.pipelines import cli, stereo
     from tpu3drec_torch.utils.config import CameraConfig, MapConfig, RGBDPipelineConfig
     from tpu3drec_torch.utils.plyio import read_ply
 
-    kernels = (icp_nn, matcher, ba_blocks)
-    for k in kernels:
-        k.reset_launches()
+    _reset_kernel_counts()
     tool = _stereo_tool()
     # the published training size, and the reference camera's for inference
     (th, tw, md, n_sim), (ih, iw, n_pairs) = (((256, 512, 64, 4), (H, W, 12)) if gpu
@@ -1409,7 +1445,7 @@ def phase_stereo(dev, gpu: bool, tmp: str, ph, seed: int, pool):
     check(res.n_voxels > 0 and os.path.getsize(scfg.rgbd.out_bt) > 0, "empty stereo .bt")
     out.update(pairs=n_pairs, infer_size=f"{ih}x{iw}", fused_points=res.n_points,
                fused_voxels=res.n_voxels)
-    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["kernel_launches"] = _kernel_counts()
     check(not any(out["kernel_launches"].values()),
           f"the stereo path launched kernels: {out['kernel_launches']}")
     ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
@@ -1434,14 +1470,11 @@ def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
 
     from tpu3drec_torch.data.capture_sim import PlanarScene
     from tpu3drec_torch.mvs.plane_sweep import plane_sweep_depth
-    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
     from tpu3drec_torch.pipelines.mvs import MvsConfig, run_mvs, select_source_views
     from tpu3drec_torch.utils.config import CameraConfig
     from tpu3drec_torch.utils.plyio import read_ply_mesh, write_ply_mesh
 
-    kernels = (icp_nn, matcher, ba_blocks)
-    for k in kernels:
-        k.reset_launches()
+    _reset_kernel_counts()
     tool = _stereo_tool()
     # the test scene of tests/test_mvs.py, seen by the reference camera
     h, w, n_views = (H, W, 12) if gpu else (96, 128, 6)
@@ -1527,11 +1560,367 @@ def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
     check(out["sweep_winners_agree"] >= 0.995 and out["sweep_nvalid_equal"] >= 0.995
           and out["sweep_zncc_p99"] <= 1e-4 and out["sweep_depth_within_1e5"] >= 0.95
           and out["sweep_depth_rel_p99"] <= 1e-4, "card and CPU plane sweeps differ")
-    out["kernel_launches"] = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["kernel_launches"] = _kernel_counts()
     check(not any(out["kernel_launches"].values()),
           f"the MVS path launched kernels: {out['kernel_launches']}")
     ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
                     if not isinstance(v, (dict, list))})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 13-16: occupancy, point-to-plane ICP, serve, mission-sim
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed(owner, names, dev):
+    """Wraps ``owner.<name>`` for each name with a timer that synchronizes
+    the device before and after; yields {name: [seconds of each call]}.
+    Fails if a name was never called, so that a renamed or bypassed stage
+    cannot leave its timing silently empty."""
+    secs = {n: [] for n in names}
+
+    def wrap(n, fn):
+        def wrapped(*args, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            secs[n].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    with patched(owner, names, wrap):
+        yield secs
+    missing = [n for n in names if not secs[n]]
+    check(not missing, f"{getattr(owner, '__name__', owner)}: {missing} never called")
+
+
+def _kernel_counts():
+    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
+
+    return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in (icp_nn, matcher, ba_blocks)}
+
+
+def _reset_kernel_counts():
+    from tpu3drec_torch.ops import ba_blocks, icp_nn, matcher
+
+    for k in (icp_nn, matcher, ba_blocks):
+        k.reset_launches()
+
+
+def phase_occupancy(dev, gpu: bool, tmp: str, ph, depths, q32, t32, cfg):
+    """`occupancy` through the CLI on phase 4's frames stored as .npy depth
+    (the reference camera, 0.1 m, 128 samples, 50 m range): seconds per
+    scan split into the device scan and the merge, occupied and free voxel
+    counts, peak memory; then the first 2 frames through the same CLI on
+    the card and on the CPU, whose `.bt` files must be byte-equal."""
+    from tpu3drec_torch.mapping import occupancy
+    from tpu3drec_torch.mapping.btio import read_bt
+    from tpu3drec_torch.pipelines import cli
+    from tpu3drec_torch.utils.config import save_json
+    from tpu3drec_torch.utils.poseio import PoseRecord, write_pose_txt
+
+    ddir = os.path.join(tmp, "depth_npy")
+    os.makedirs(ddir)
+    for f in range(len(depths)):
+        np.save(os.path.join(ddir, f"{f}.npy"), depths[f])
+    poses = {}
+    for n in (len(depths), 2):
+        poses[n] = os.path.join(tmp, f"occ_poses_{n}.txt")
+        write_pose_txt(poses[n], [PoseRecord(f, t32[f], q32[f], f"{f}.npy") for f in range(n)])
+    ocfg = dataclasses.replace(cfg, out_ply="", out_bt="",
+                               depth=dataclasses.replace(cfg.depth, mode="npy"))
+    cfg_path = os.path.join(tmp, "occ_cfg.json")
+    save_json(ocfg, cfg_path)
+
+    def run(n, device_flag, out):
+        cli.main(device_flag + ["occupancy", "--config", cfg_path, "--poses", poses[n],
+                                "--depth-dir", ddir, "--res", "0.1", "--max-samples", "128",
+                                "--max-range", "50", "--out", out])
+
+    _reset_kernel_counts()
+    card = [] if gpu else ["--device", "cpu"]
+    full = os.path.join(tmp, "occ_full.bt")
+    if gpu:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with timed(occupancy.OccupancyMap, ("_scan", "_merge"), dev) as secs:
+        run(len(depths), card, full)
+    wall = time.perf_counter() - t0
+    occ, free, res = read_bt(full, with_free=True)
+    check(res == 0.1 and len(occ) > 0 and len(free) > len(occ),
+          f"occupancy .bt holds {len(occ)} occupied and {len(free)} free voxels at {res}")
+    out = {"frames": len(depths), "size": f"{depths.shape[1]}x{depths.shape[2]}",
+           "rows_per_scan": int(depths[0].size * 129), "cli_s": wall,
+           "scan_s": secs["_scan"], "merge_s": secs["_merge"],
+           "scan_s_mean": float(np.mean(secs["_scan"])),
+           "merge_s_mean": float(np.mean(secs["_merge"])),
+           "s_per_frame": wall / len(depths), "occupied": len(occ), "free": len(free),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if gpu else None}
+    two = {}
+    for name, flag in (("card", card), ("cpu", ["--device", "cpu"])):
+        two[name] = os.path.join(tmp, f"occ_2_{name}.bt")
+        t0 = time.perf_counter()
+        run(2, flag, two[name])
+        out[f"two_frames_s_{name}"] = time.perf_counter() - t0
+    out["bt_card_equals_cpu"] = _same_bytes(two["card"], two["cpu"])
+    check(out["bt_card_equals_cpu"], "the card's and the CPU's occupancy .bt differ")
+    out["kernel_launches"] = _kernel_counts()
+    check(not any(out["kernel_launches"].values()),
+          f"the occupancy path launched kernels: {out['kernel_launches']}")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, (dict, list))})
+    return out
+
+
+def phase_point_to_plane(dev, gpu: bool, rng, a, ph):
+    """Point-to-plane ICP of phase 5's cloud against a copy under a known
+    rigid motion (a few degrees, ~0.45 m), normals estimated (k=16), 15
+    iterations: the transform within 1e-3 of the truth, 15 ICP-NN launches
+    per call, each equal to the plain version; a 4,800-point subsample on
+    the card and on the CPU: transforms within 1e-4, normals equal up to
+    sign. Returns (the path's launches, the largest kernel error, the
+    line's numbers)."""
+    from tpu3drec_torch.ops import icp_nn
+    from tpu3drec_torch.sfm import icp as icp_mod
+
+    R = _rot(0.05, -0.04, 0.03)
+    t = np.array([0.3, -0.2, 0.25])
+    dst = a.astype(np.float32)
+    src = ((a.astype(np.float64) - t) @ R).astype(np.float32)  # R src + t = dst
+    T_true = np.eye(4)
+    T_true[:3, :3], T_true[:3, 3] = R, t
+    out = {"points": int(a.shape[0]), "k": 16, "iters": 15}
+    kernel_err = 0.0
+    sub = rng.permutation(a.shape[0])[:4_800]
+
+    ctx = recording(icp_mod, "nearest_neighbors_cuda") if gpu else contextlib.nullcontext([])
+    with ctx as calls:
+        # the subsample first, on the card (also the warm-up); its launches
+        # are checked here and kept out of the main path's count
+        before = icp_nn.launches
+        res_s = icp_mod.icp_point_to_plane(src[sub], dst[sub], device=dev)
+        sub_launches = icp_nn.launches - before
+        # the main path: counted from 0 just before the call, read just after
+        with timed(icp_mod, ("estimate_normals", "_icp_plane_core"), dev) as secs:
+            icp_nn.reset_launches()
+            res = icp_mod.icp_point_to_plane(src, dst, device=dev)
+            launches = icp_nn.launches
+    if gpu:
+        for n, got in (("4,800", sub_launches), ("76,800", launches)):
+            check(got == 15, f"point-to-plane ICP at {n} points launched icp_nn {got} times in "
+                  "15 iterations")
+        # every recorded call, the subsample's too, against the plain version
+        kernel_err = hold_against_plain(calls, icp_nn.nearest_neighbors_plain,
+                                        "icp_nn (point-to-plane)")
+    out.update(normals_s=secs["estimate_normals"][0], core_s=secs["_icp_plane_core"][0],
+               launches=launches, sub_launches=sub_launches)
+    T = res.T.cpu().numpy().astype(np.float64)
+    out["T_err"] = float(np.abs(T - T_true).max())
+    out["rmse"] = float(res.rmse)
+    out["n_inliers"] = int(res.n_inliers)
+    check(out["T_err"] <= 1e-3, f"point-to-plane T differs from the truth by {out['T_err']}")
+    res_c = icp_mod.icp_point_to_plane(src[sub], dst[sub], device="cpu")
+    out["sub_T_card_vs_cpu"] = float((res_s.T.cpu() - res_c.T).abs().max())
+    check(out["sub_T_card_vs_cpu"] <= 1e-4,
+          f"the card's and the CPU's transforms differ by {out['sub_T_card_vs_cpu']}")
+    d_sub = torch.as_tensor(dst[sub])
+    nc = icp_mod.estimate_normals(d_sub.to(dev)).cpu().numpy()
+    nh = icp_mod.estimate_normals(d_sub).numpy()
+    dots = np.abs((nc * nh).sum(1))
+    out["normals_within_1e4"] = float((dots >= 1 - 1e-4).mean())
+    out["normals_min_abs_dot"] = float(dots.min())
+    check(out["normals_within_1e4"] >= 0.99,
+          f"only {out['normals_within_1e4']:.4f} of the normals agree up to sign")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()})
+    return launches, kernel_err, out
+
+
+def phase_serve(dev, gpu: bool, tmp: str, ph, depths, q32, t32, cfg, rng):
+    """`serve` on the card: the port's C++ sender streams a capture blob of
+    phase 4's frames with RGB to the CLI's `serve` at batch 4 (its own
+    process), and to `stream_fuse` in this process; the `.bt`, the PLY and
+    the sorted points must equal `run_arrays` on the same frames."""
+    from tpu3drec_torch.data import stream
+    from tpu3drec_torch.pipelines import rgbd
+    from tpu3drec_torch.utils.config import save_json
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    F = len(depths)
+    rgb = rng.integers(0, 256, size=depths.shape + (3,), dtype=np.uint8)
+    blob = os.path.join(tmp, "capture.t3dc")
+    stream.write_capture_blob(blob, depths, rgb=rgb, t=t32, q_xyzw=q32)
+    t0 = time.perf_counter()
+    sender = stream.sender_path()
+    out = {"frames": F, "size": f"{depths.shape[1]}x{depths.shape[2]}", "batch": 4,
+           "blob_mb": os.path.getsize(blob) / 1e6, "sender_build_s": time.perf_counter() - t0}
+    scfg = dataclasses.replace(cfg, out_ply="", out_bt="")
+    cfg_path = os.path.join(tmp, "serve_cfg.json")
+    save_json(scfg, cfg_path)
+    ref = dataclasses.replace(cfg, out_ply=os.path.join(tmp, "serve_ref.ply"),
+                              out_bt=os.path.join(tmp, "serve_ref.bt"))
+    off = rgbd.run_arrays(depths, q32, t32, ref, keep_points=True, colors=rgb, device=dev)
+
+    # through the CLI, in its own process
+    ply, bt = os.path.join(tmp, "serve.ply"), os.path.join(tmp, "serve.bt")
+    device_flag = [] if gpu else ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "tpu3drec_torch.pipelines.cli", *device_flag, "serve",
+         "--config", cfg_path, "--batch", "4", "--out-ply", ply, "--out-bt", bt],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        first = srv.stdout.readline()
+        check(first.startswith("listening on port"), f"serve did not start: {first!r}")
+        t0 = time.perf_counter()
+        sent = subprocess.run([sender, blob, "127.0.0.1", first.split()[-1]],
+                              capture_output=True, text=True, timeout=300)
+        check(sent.returncode == 0, f"the sender failed: {sent.stderr}")
+        srv_out, srv_err = srv.communicate(timeout=300)
+        out["cli_s"] = time.perf_counter() - t0
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.communicate()
+    check(srv.returncode == 0, f"serve exited {srv.returncode}: {srv_err[-2000:]}")
+    check(f"stream done: {F} frames" in srv_out, f"serve said {srv_out[-500:]!r}")
+    out["cli_frames_per_s"] = F / out["cli_s"]
+
+    # in this process: the card is warm, so this is the ingestion rate
+    _reset_kernel_counts()
+    icfg = dataclasses.replace(cfg, out_ply=os.path.join(tmp, "serve_in.ply"),
+                               out_bt=os.path.join(tmp, "serve_in.bt"))
+    server = stream.FrameStreamServer()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sender, blob, "127.0.0.1", str(server.port)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res = stream.stream_fuse(server, icfg, batch=4, keep_points=True, device=dev)
+        sync(dev)
+        out["stream_fuse_s"] = time.perf_counter() - t0
+        proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"the sender exited {proc.returncode}")
+    out["frames_per_s"] = F / out["stream_fuse_s"]
+    out["kernel_launches"] = _kernel_counts()
+    check(not any(out["kernel_launches"].values()),
+          f"the stream path launched kernels: {out['kernel_launches']}")
+    check(res.n_frames == F and res.n_points == off.n_points and res.n_voxels == off.n_voxels,
+          f"stream fused {res.n_frames} frames, {res.n_points} points, {res.n_voxels} voxels; "
+          f"run_arrays {off.n_points} points, {off.n_voxels} voxels")
+    for a, b in ((bt, ref.out_bt), (ply, ref.out_ply), (icfg.out_bt, ref.out_bt),
+                 (icfg.out_ply, ref.out_ply)):
+        check(_same_bytes(a, b), f"{os.path.basename(a)} differs from run_arrays' file")
+    pts, _ = read_ply(ply)
+    key = lambda p: p[np.lexsort(p.T[::-1])]  # noqa: E731
+    check(np.array_equal(key(pts), key(off.points)), "serve's sorted points differ")
+    out.update(points=res.n_points, voxels=res.n_voxels)
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, dict)})
+    return out
+
+
+def _perception_frames(rng, h: int, w: int):
+    """Frames rendered with numpy: a ring gate in sensor noise and the noise
+    alone; a bright landing pad on a dark ground; an ArUco marker in a white
+    frame (and turned a quarter); a number board from a bank of templates.
+    The pad and the marker are two-level images, so no pixel lies near a
+    threshold."""
+    from tpu3drec_torch.autonomy import aruco
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    noise = (0.05 * rng.uniform(size=(h, w))).astype(np.float32)
+    ring = noise.copy()
+    ring[np.abs(np.sqrt((ys - 0.45 * h) ** 2 + (xs - 0.6 * w) ** 2) - h / 12) < 2.0] = 1.0
+    pad = np.where((ys - 0.55 * h) ** 2 + (xs - 0.4 * w) ** 2 < (h / 8) ** 2, 1.0, 0.1)
+    cell = max(h // 12, 4)
+    marker = np.ones((h, w), np.float32)
+    m = aruco.render_marker(451, cell_px=cell)
+    y0, x0 = (h - m.shape[0]) // 2, (w - m.shape[1]) // 3
+    marker[y0:y0 + m.shape[0], x0:x0 + m.shape[1]] = m
+    th = max(h // 10, 8)
+    temps = rng.uniform(size=(9, th, th)).astype(np.float32)
+    board = np.full((h, w), 0.5, np.float32)
+    board[h // 3:h // 3 + th, w // 2:w // 2 + th] = temps[5]
+    return (np.stack([ring, noise]), pad[None].astype(np.float32),
+            np.stack([marker, np.rot90(marker, 2).copy()]), board[None], temps)
+
+
+def phase_autonomy(dev, gpu: bool, ph, rng):
+    """`mission-sim` through the CLI (1200 ticks, exit 0 only when LANDED;
+    ticks per second), its phases and trajectory held against a CPU run;
+    then `label_components`, `largest_blob`, `detect_rings`,
+    `match_templates` and `decode_marker` on 480x640 frames rendered with
+    numpy, on the card and on the CPU: integer outputs equal, floats within
+    1e-5 relative (centroids, circularity) and 1e-4 (ring and template
+    scores)."""
+    from tpu3drec_torch.autonomy import aruco, detect
+    from tpu3drec_torch.pipelines import cli
+
+    _reset_kernel_counts()
+    out = {}
+    device_flag = [] if gpu else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    rc = cli.main(device_flag + ["mission-sim"])
+    out["mission_cli_s"] = time.perf_counter() - t0
+    check(rc == 0, f"mission-sim exited {rc}: the mission did not end LANDED")
+    t0 = time.perf_counter()
+    state, traj, phases = cli.mission_sim(device=dev)
+    sync(dev)
+    out["mission_s"] = time.perf_counter() - t0
+    out["ticks_per_s"] = 1200 / out["mission_s"]
+    t0 = time.perf_counter()
+    _, ctraj, cphases = cli.mission_sim(device="cpu")
+    out["mission_cpu_s"] = time.perf_counter() - t0
+    out["cpu_ticks_per_s"] = 1200 / out["mission_cpu_s"]
+    check(torch.equal(phases.cpu(), cphases), "the card's mission phases differ from the CPU's")
+    out["traj_card_vs_cpu"] = float((traj.cpu() - ctraj).abs().max())
+    check(out["traj_card_vs_cpu"] <= 1e-4, f"trajectories differ by {out['traj_card_vs_cpu']}")
+    out["final_phase"] = int(state.phase)
+
+    h, w = (H, W) if gpu else (96, 128)
+    rings, pad, markers, board, temps = _perception_frames(rng, h, w)
+    radii = (12, 16, 20, 26, 32, 40, 50, 60)
+    calls = {
+        "label_components": lambda d: (detect.label_components(markers < 0.5, device=d),),
+        "largest_blob": lambda d: detect.largest_blob(pad, device=d),
+        "detect_rings": lambda d: detect.detect_rings(rings, radii=radii, device=d),
+        "match_templates": lambda d: detect.match_templates(board, temps, device=d),
+        "decode_marker": lambda d: aruco.decode_marker(markers, device=d),
+    }
+    floats = {"largest_blob": {"cx": 1e-5, "cy": 1e-5, "circularity": 1e-5},
+              "detect_rings": {"score": 1e-4}, "match_templates": {"score": 1e-4},
+              "decode_marker": {"corners": 0.0}}
+    results = {}
+    for name, fn in calls.items():
+        got = fn(dev)
+        want = fn("cpu")
+        fields = getattr(got, "_fields", [str(i) for i in range(len(got))])
+        for field, g, c in zip(fields, got, want):
+            g = g.cpu()
+            tol = floats.get(name, {}).get(field)
+            if tol is None:
+                check(torch.equal(g, c), f"{name}.{field}: card {g.tolist()} != CPU {c.tolist()}")
+            else:
+                err = float((g.double() - c.double()).abs().max() / max(1.0, float(c.abs().max())))
+                check(err <= tol, f"{name}.{field}: card and CPU differ by {err} (bound {tol})")
+        results[name] = {f: (v.cpu().tolist() if v.numel() <= 8 else list(v.shape))
+                         for f, v in zip(fields, got)}
+        out[f"{name}_ms"] = time_ms(lambda: fn(dev), dev, reps=3 if gpu else 1)
+    check(results["decode_marker"]["marker_id"] == [451, 451], f"markers read as "
+          f"{results['decode_marker']['marker_id']}")
+    check(results["largest_blob"]["found"] == [True], "the pad was not found")
+    out["perception"] = results
+    out["kernel_launches"] = _kernel_counts()
+    check(not any(out["kernel_launches"].values()),
+          f"the autonomy path launched kernels: {out['kernel_launches']}")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, dict)})
     return out
 
 
@@ -1543,7 +1932,7 @@ def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-12 at a tiny size on the CPU with the plain versions")
+                    help="run phases 3-16 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     gpu = not args.rehearse_cpu
@@ -1704,7 +2093,7 @@ def main(argv=None) -> int:
             ph.info.update(points=n, icp_s=round(icp_s, 3), scale=scale, T_err=T_err,
                            merged_points=m_pts.shape[0], merged_voxels=keys.shape[0])
 
-        row["launches"] = icp_nn.launches  # read just after phases 4-5
+        n_icp = icp_nn.launches  # read just after phases 4-5
 
         # ---- phase 6: the matcher kernel against its plain version ---------
         with Phase("matcher_vs_plain") as ph:
@@ -1752,6 +2141,25 @@ def main(argv=None) -> int:
             with Phase("mvs") as ph:
                 mvs_row = phase_mvs(dev, gpu, tmp, ph, args.seed, pool)
 
+        # ---- phase 13: occupancy through the CLI ----------------------------
+        with Phase("occupancy") as ph:
+            occ_row = phase_occupancy(dev, gpu, tmp, ph, depths, q32, t32, cfg)
+
+        # ---- phase 14: point-to-plane ICP (counts zeroed inside, read after) -
+        with Phase("point_to_plane") as ph:
+            n_p2p, err, p2p_row = phase_point_to_plane(dev, gpu, rng, a, ph)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["launches"] = n_icp + n_p2p
+        row["launches_by_path"] = {"icp": n_icp, "point_to_plane": n_p2p}
+
+        # ---- phase 15: serve ---------------------------------------------------
+        with Phase("serve") as ph:
+            serve_row = phase_serve(dev, gpu, tmp, ph, depths, q32, t32, cfg, rng)
+
+        # ---- phase 16: mission-sim and perception ------------------------------
+        with Phase("autonomy") as ph:
+            auto_row = phase_autonomy(dev, gpu, ph, rng)
+
     rows = [row, m_row, b_row]
     for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):
         # registers and spill bytes of each __global__, from ptxas's report
@@ -1760,11 +2168,11 @@ def main(argv=None) -> int:
         r["ok"] = True
         if gpu:
             check(r["launches"] > 0, f"the main path never launched {r['name']}")
-    for line in (mono, stereo_row, mvs_row):
+    lines = {"monocular": mono, "stereo": stereo_row, "mvs": mvs_row, "occupancy": occ_row,
+             "point_to_plane": p2p_row, "serve": serve_row, "autonomy": auto_row}
+    for name, line in lines.items():
         line.update(device=torch.cuda.get_device_name(0) if gpu else "cpu", nvidia_smi=smi)
-    log("monocular " + json.dumps(mono))
-    log("stereo " + json.dumps(stereo_row))
-    log("mvs " + json.dumps(mvs_row))
+        log(f"{name} " + json.dumps(line))
     log(json.dumps({"kernels": rows}))
     if not gpu:
         log(json.dumps({"ok": True, "rehearsal": "cpu"}))

@@ -173,6 +173,23 @@ def test_single_frame_unproject(seed):
            jun.camera_to_world_points(jnp.asarray(pc.numpy()), jT), 60)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_unfused_unproject_equals_eager_jax(seed):
+    """The unfused unprojection against the JAX package's
+    `depth_to_world_points` called eagerly, as its `occupancy` CLI calls
+    it: one op at a time, no fma. Bit for bit."""
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(0.5, 50, (24, 32)).astype(np.float32)
+    R, t = _rotations(rng, 1)[0], (rng.normal(size=3) * 3).astype(np.float32)
+    tc = tcam.PinholeCamera.create(300.0, 310.0, 16.0, 12.0, 32, 24, device=CPU)
+    jc = jcam.PinholeCamera.create(300.0, 310.0, 16.0, 12.0, 32, 24)
+    got = tun.depth_to_world_points_unfused(
+        torch.from_numpy(depth), tc, tse3.SE3(torch.from_numpy(R), torch.from_numpy(t)))
+    want = jun.depth_to_world_points(jnp.asarray(depth), jc,
+                                     jse3.SE3(jnp.asarray(R), jnp.asarray(t)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_entry_points_default_to_the_card():
     """device=None means CUDA; without a card that raises, never falls back."""
     if torch.cuda.is_available():

@@ -168,3 +168,62 @@ def test_config_reads_the_same_json(tmp_path):
     cam = got.camera.to_camera(device="cpu")
     assert (float(cam.fx), cam.width, cam.height) == (220.0, 256, 192)
     assert os.path.exists(a)
+
+
+def _records_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.frame_id, g.image_name) == (w.frame_id, w.image_name)
+        np.testing.assert_array_equal(g.t, w.t)
+        np.testing.assert_array_equal(g.q_xyzw, w.q_xyzw)
+
+
+_COLMAP_HEADER = ("# Image list with two lines of data per image:\n"
+                  "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n"
+                  "#   POINTS2D[] as (X, Y, POINT3D_ID)\n"
+                  "# Number of images: 3, mean observations per image: 2\n")
+
+
+@pytest.mark.parametrize("trailing", ["", "\n\n"])
+def test_colmap_images_txt_matches_reference(tmp_path, trailing):
+    """Every image with points: the reference's records, trailing blank
+    lines or not (and the reference's own one-image file)."""
+    rng = np.random.default_rng(4)
+    body = []
+    for i in range(3):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        t = rng.normal(size=3) * 5
+        body.append(f"{i + 1} {' '.join(repr(float(v)) for v in q)} "
+                    f"{' '.join(repr(float(v)) for v in t)} 1 frame_{i:03d}.png\n")
+        body.append(" ".join(f"{rng.uniform(0, 640):.2f} {rng.uniform(0, 480):.2f} {j}"
+                             for j in range(i + 1)) + "\n")
+    p = str(tmp_path / "images.txt")
+    with open(p, "w") as f:
+        f.write(_COLMAP_HEADER + "".join(body) + trailing)
+    _records_equal(tpose.read_colmap_images_txt(p), jpose.read_colmap_images_txt(p))
+    one = str(tmp_path / "one.txt")
+    with open(one, "w") as f:
+        f.write("# images header\n1 1.0 0.0 0.0 0.0 0.5 0.6 0.7 1 img1.png\n100 200 -1\n")
+    got = tpose.read_colmap_images_txt(one)
+    _records_equal(got, jpose.read_colmap_images_txt(one))
+    np.testing.assert_array_equal(got[0].q_xyzw, [0, 0, 0, 1])
+
+
+def test_colmap_images_txt_empty_points_line(tmp_path):
+    """COLMAP writes an empty POINTS2D line for an image that observes no
+    point. The reference drops empty lines before pairing, so its pairs
+    shift and it raises; the port reads every image."""
+    p = str(tmp_path / "images.txt")
+    with open(p, "w") as f:
+        f.write(_COLMAP_HEADER)
+        f.write("1 1.0 0.0 0.0 0.0 0.5 0.6 0.7 1 a.png\n\n")
+        f.write("2 0.0 1.0 0.0 0.0 1.5 1.6 1.7 1 b.png\n10.5 20.25 7 30.0 40.0 -1\n")
+        f.write("3 0.0 0.0 1.0 0.0 2.5 2.6 2.7 2 c.png\n\n")
+    with pytest.raises(ValueError):
+        jpose.read_colmap_images_txt(p)
+    got = tpose.read_colmap_images_txt(p)
+    assert [r.frame_id for r in got] == [1, 2, 3]
+    assert [r.image_name for r in got] == ["a.png", "b.png", "c.png"]
+    np.testing.assert_array_equal(got[1].q_xyzw, [1.0, 0.0, 0.0, 0.0])
+    np.testing.assert_array_equal(got[2].t, [2.5, 2.6, 2.7])

@@ -89,6 +89,19 @@ def test_bt_from_points_byte_equal(res, tmp_path):
     assert _bytes(nat) == _bytes(py) == _bytes(jx)
 
 
+@pytest.mark.parametrize("res", [1.0, 2.0, 10.0, 100.0, 123456.0, 1e15, 1e16, 2.5e17,
+                                 1e-4, 1e-5, 0.3, 1.5, 3.0517578125e-05])
+def test_bt_header_res_is_python_repr(res, tmp_path):
+    """The header's ``res`` is printed as Python's repr prints it: "1.0",
+    not "1"; "100.0", not "1e+02"; fixed notation below 1e16."""
+    keys = np.array([[1, 2, 3], [-4, 5, 6]], np.int32)
+    nat, py = str(tmp_path / "native.bt"), str(tmp_path / "python.bt")
+    native.bt_write_keys(nat, keys, res)
+    jbt.write_bt(py, keys, res, backend="python")
+    assert _bytes(nat) == _bytes(py)
+    assert f"res {res!r}\n".encode() in _bytes(nat)
+
+
 def test_bt_out_of_range_raises(tmp_path):
     with pytest.raises(ValueError, match="key range"):
         native.bt_write_keys(str(tmp_path / "a.bt"), np.array([[1 << 15, 0, 0]], np.int32), 0.1)

@@ -1,6 +1,6 @@
 """The port's smoke script and import rules, checked on the CPU.
 
-* `chip_smoke.py --rehearse-cpu` runs phases 3-12 at a tiny size with the
+* `chip_smoke.py --rehearse-cpu` runs phases 3-16 at a tiny size with the
   plain versions and exits 0.
 * Without a card, and in a directory that holds `chip_smoke.py` and
   nothing else of the repo, it exits non-zero and prints no result.
@@ -11,8 +11,9 @@
   JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
 * On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
   equal their plain versions bit for bit, and a monodepth train step, a
-  PSMNet train step and a plane sweep on the card agree with the same on
-  the CPU. This file imports no JAX, so on a machine without it the test
+  PSMNet train step, a plane sweep and an occupancy scan on the card agree
+  with the same on the CPU; point-to-plane ICP launches the ICP-NN kernel
+  once an iteration. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
   tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
 """
@@ -54,13 +55,23 @@ def test_rehearsal_on_cpu():
         assert keys <= set(k), (k["name"], keys - set(k))
     for phase in ("kernel_vs_plain", "fusion", "icp", "matcher_vs_plain",
                   "ba_blocks_vs_plain", "ba_solve", "sfm", "long_sequence", "monocular",
-                  "stereo", "mvs"):
+                  "stereo", "mvs", "occupancy", "point_to_plane", "serve", "autonomy"):
         assert any(line.startswith(f"[phase {phase}] ok") for line in lines), phase
     fusion = next(line for line in lines if line.startswith("[phase fusion] ok"))
     for key in ("run_arrays_s=", "run_arrays_s_python=", "ascii_ply_s_native="):
         assert key in fusion, key
-    assert [line.split(" ", 1)[0] for line in lines[-5:-2]] == ["monocular", "stereo", "mvs"]
-    mono, stereo, mvs = (json.loads(line.split(" ", 1)[1]) for line in lines[-5:-2])
+    names = ["monocular", "stereo", "mvs", "occupancy", "point_to_plane", "serve", "autonomy"]
+    assert [line.split(" ", 1)[0] for line in lines[-9:-2]] == names
+    mono, stereo, mvs, occ, p2p, serve, auto = (json.loads(line.split(" ", 1)[1])
+                                                for line in lines[-9:-2])
+    assert kernels[0]["launches_by_path"]["point_to_plane"] == p2p["launches"]
+    assert occ["bt_card_equals_cpu"] and occ["free"] > occ["occupied"] > 0
+    for key in ("scan_s_mean", "merge_s_mean", "s_per_frame", "peak_gib"):
+        assert key in occ, key
+    for key in ("normals_s", "core_s", "T_err", "sub_T_card_vs_cpu", "normals_within_1e4"):
+        assert key in p2p, key
+    assert serve["points"] > 0 and serve["frames_per_s"] > 0
+    assert auto["final_phase"] == 9 and auto["perception"]["decode_marker"]["marker_id"] == [451, 451]
     for key in ("loss_rel_diff", "train_ms_f32", "train_ms_bf16", "infer_fps_64x96",
                 "depth_rel_diff", "fused_points"):
         assert key in mono, key
@@ -73,7 +84,7 @@ def test_rehearsal_on_cpu():
                 "grid_bytes", "verts", "faces", "within_3_voxels", "sweep_winners_agree"):
         assert key in mvs, key
     assert mvs["within_3_voxels"] >= 0.9
-    for line in (mono, stereo, mvs):
+    for line in (mono, stereo, mvs, occ, serve, auto):
         assert not any(line["kernel_launches"].values())
 
 
@@ -477,3 +488,90 @@ def test_plane_sweep_card_matches_cpu():
     assert (rel <= 1e-5).mean() >= 0.95 and np.quantile(rel, 0.99) <= 1e-4
     inner = (slice(10, -10), slice(10, -10))
     assert np.median(np.abs(gd[inner] - 10.0)) < 0.5  # the wall
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res,samples", [(0.1, 128), (0.05, 32)])
+def test_scan_update_card_matches_cpu(res, samples):
+    """One occupancy scan (a 120x160 depth frame's rays from a moving origin,
+    some invalid) on the card and on the CPU: keys and both masks equal, and
+    the maps' keys and log-odds after two scans too. The sampling's fused
+    multiply-adds and correctly rounded norm go through float64 on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.mapping.occupancy import OccupancyMap, scan_update
+
+    rng = np.random.default_rng(1)
+    maps = {dev: OccupancyMap(res=res, max_samples=samples, device=dev) for dev in ("cuda", "cpu")}
+    for f in range(2):
+        origin = rng.uniform(-1, 1, 3).astype(np.float32)
+        pts = (origin + rng.normal(size=(120 * 160, 3)) * rng.uniform(0.5, 12.0, (120 * 160, 1)))
+        pts = pts.astype(np.float32)
+        valid = rng.random(120 * 160) > 0.1
+        out = {}
+        for dev in ("cuda", "cpu"):
+            args = (torch.as_tensor(origin, device=dev), torch.as_tensor(pts, device=dev),
+                    torch.as_tensor(valid, device=dev))
+            out[dev] = [x.cpu() for x in scan_update(*args, res, samples)]
+            maps[dev].insert_scan(origin, pts, valid)
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(a, b)
+    assert np.array_equal(maps["cuda"].keys, maps["cpu"].keys)
+    assert np.array_equal(maps["cuda"].logodds, maps["cpu"].logodds)
+
+
+@pytest.mark.gpu
+def test_point_to_plane_launches_the_icp_nn_kernel():
+    """Point-to-plane ICP on the card: one ICP-NN kernel launch per
+    iteration, each launch equal to the plain version on the inputs the
+    path gave it, and the transform within 1e-4 of the CPU run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.sfm import icp
+
+    rng = np.random.default_rng(2)
+    a = np.concatenate([rng.uniform(0, 2, size=(1500, 2)), np.zeros((1500, 1))], 1)
+    b = np.concatenate([rng.uniform(0, 2, size=(1500, 1)), np.zeros((1500, 1)),
+                        rng.uniform(0, 1, size=(1500, 1))], 1)
+    c = np.concatenate([np.zeros((1500, 1)), rng.uniform(0, 2, size=(1500, 1)),
+                        rng.uniform(0, 1, size=(1500, 1))], 1)
+    g = np.concatenate([a, b, c]).astype(np.float32)
+    th = 0.1
+    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    dst = (g @ R.T + [0.3, -0.2, 0.1]).astype(np.float32)
+    calls = []
+    kernel = icp_nn.nearest_neighbors_cuda
+
+    def recording(q, r):
+        out = kernel(q, r)
+        calls.append((q.clone(), r.clone(), out[0].clone(), out[1].clone()))
+        return out
+
+    before = icp_nn.launches
+    icp.nearest_neighbors_cuda = recording
+    try:
+        res = icp.icp_point_to_plane(g, dst, iters=12, device="cuda")
+    finally:
+        icp.nearest_neighbors_cuda = kernel
+    assert icp_nn.launches - before == 12 and len(calls) == 12
+    for q, r, idx, d2 in calls:
+        pidx, pd2 = icp_nn.nearest_neighbors_plain(q, r)
+        assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+    cpu = icp.icp_point_to_plane(g, dst, iters=12, device="cpu")
+    assert float((res.T.cpu() - cpu.T).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_estimate_normals_past_the_eigh_batch_limit_on_the_card():
+    """40,000 points on a plane: more 3x3 covariances than cuSOLVER's
+    batched eigh takes at once (it refuses 32,768); every normal is the
+    plane's, up to sign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpu3drec_torch.sfm import icp
+
+    rng = np.random.default_rng(4)
+    p = np.concatenate([rng.uniform(0, 20, size=(40_000, 2)), np.zeros((40_000, 1))], 1)
+    nrm = icp.estimate_normals(torch.as_tensor(p, dtype=torch.float32, device="cuda"))
+    assert nrm.shape == (40_000, 3)
+    assert float((nrm[:, 2].abs() - 1).abs().max()) < 1e-4

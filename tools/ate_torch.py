@@ -6,14 +6,17 @@ benchmark), rebuilt here on `tpu3drec_torch` alone: a ray-cast urban block
 (`data/capture_sim.py::PlanarScene`) driven around by a camera at 640x192
 with KITTI's intrinsics scaled, per-frame exposure jitter and sensor noise,
 and noisy sparse metric depth priors. The frames equal the benchmark's bit
-for bit (without its optional `degrade` stack, not ported yet). Frames are
-ray-cast in parallel worker processes; the noise is then drawn serially in
-frame order, as the benchmark draws it.
+for bit, with its optional `degrade` stack too (`--degrade`: motion blur,
+defocus, vignetting, exposure jitter and sensor noise of
+`tpu3drec_torch/data/degrade.py`, drawn from the benchmark's generator).
+Frames are ray-cast in parallel worker processes; the noise is then drawn
+serially in frame order, as the benchmark draws it.
 
 Usage:
   python tools/ate_torch.py --seq m00 --frames 150            # on the card
   python tools/ate_torch.py --seq m00 --frames 16 --device cpu
   python tools/ate_torch.py --seq m00 --frames 150 --out ate_m00.json
+  python tools/ate_torch.py --seq m00 --frames 150 --degrade
 """
 
 from __future__ import annotations
@@ -163,11 +166,13 @@ def _render(pose):
     return _scene.render(R, t, camera(), max_depth=120.0)
 
 
-def render_sequence(name: str, n_frames: int, workers: int | None = None):
+def render_sequence(name: str, n_frames: int, workers: int | None = None,
+                    degrade: bool = False):
     """The ``n_frames`` noisy frames of sequence ``name`` with their depth
     priors: (images (F,H,W) float32, depths (F,H,W) float32, gt_T (F,4,4)
     float64). ``workers`` processes ray-cast the frames (default: one per
-    CPU)."""
+    CPU). ``degrade`` adds the full photometric stack of
+    `data/degrade.py` on top, as the benchmark's ``--degrade`` does."""
     layout = SEQ_LAYOUTS[name]
     seed, n_boxes, ext = layout[:3]
     corner_frac = layout[3] if len(layout) > 3 else 0.35
@@ -202,12 +207,17 @@ def render_sequence(name: str, n_frames: int, workers: int | None = None):
         T[:3, :3] = R.T
         T[:3, 3] = -R.T @ t
         gt_T.append(T)
-    return np.stack(images), np.stack(depths), np.stack(gt_T).astype(np.float64)
+    images = np.stack(images)
+    if degrade:
+        from tpu3drec_torch.data.degrade import degrade_sequence
+
+        images = degrade_sequence(images, poses, camera(), np.random.default_rng(seed + 2))
+    return images, np.stack(depths), np.stack(gt_T).astype(np.float64)
 
 
 def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int = 12,
                  stride: int = 7, depth_priors: bool = True, workers: int | None = None,
-                 device=None):
+                 device=None, degrade: bool = False):
     """Render sequence ``name`` and run it through `run_windowed_sfm` on
     ``device`` (None means the card) with the benchmark's settings (loop
     closure, closure gap 30). Returns the metrics of `evaluate_sequence`
@@ -216,7 +226,7 @@ def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int
         KittiRunConfig, evaluate_sequence, run_windowed_sfm)
 
     t0 = time.perf_counter()
-    images, depths, gt_T = render_sequence(name, n_frames, workers=workers)
+    images, depths, gt_T = render_sequence(name, n_frames, workers=workers, degrade=degrade)
     render_s = time.perf_counter() - t0
     K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
     cfg = KittiRunConfig(window=window, stride=stride, max_keypoints=max_keypoints,
@@ -228,7 +238,7 @@ def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int
     wall = time.perf_counter() - t0
     m = evaluate_sequence(Ts, gt_T)
     m = {k: float(v) for k, v in m.items()}
-    m.update(seq=name, frames=len(images), wall_s=wall,
+    m.update(seq=name, frames=len(images), degrade=degrade, wall_s=wall,
              render_s=render_s, frames_per_s=len(images) / wall,
              ate_pct_traj=100.0 * m["ate_rms"] / m["traj_len"],
              stage_s=state["seconds"], windows=len(state["window_seconds"]),
@@ -253,13 +263,15 @@ def main(argv=None):
     p.add_argument("--frames", type=int, default=150)
     p.add_argument("--max-keypoints", type=int, default=512)
     p.add_argument("--no-depth-priors", action="store_true")
+    p.add_argument("--degrade", action="store_true",
+                   help="add the full photometric degradation stack (data/degrade.py)")
     p.add_argument("--workers", type=int, default=None, help="render processes (default: CPUs)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--out", default=None, help="also write the metrics as JSON here")
     args = p.parse_args(argv)
     m = run_sequence(args.seq, args.frames, max_keypoints=args.max_keypoints,
                      depth_priors=not args.no_depth_priors, workers=args.workers,
-                     device=args.device)
+                     device=args.device, degrade=args.degrade)
     line = json.dumps(m)
     print(line, flush=True)
     if args.out:

@@ -67,6 +67,25 @@ def depth_to_world_points(
         X, Y, depth)
 
 
+def depth_to_world_points_unfused(
+    depth: torch.Tensor, cam: PinholeCamera, cam_to_world: SE3
+) -> torch.Tensor:
+    """`depth_to_world_points` with every product and sum rounded on its
+    own: (H, W) -> (H, W, 3). The two differ only in rounding. The JAX
+    package fuses the expression into fmas where it compiles it (its
+    fusion path: `depth_to_world_points` and `fuse_depth_maps` here), but
+    its `occupancy` CLI calls it eagerly, one op at a time, with no fma;
+    the port's `occupancy` calls this one so that its voxel keys, and its
+    `.bt`, equal the JAX CLI's bit for bit."""
+    h, w = depth.shape[-2], depth.shape[-1]
+    u, v = _pixel_grid(h, w, depth.dtype, depth.device)
+    X = (u - cam.cx) / cam.fx * depth
+    Y = (v - cam.cy) / cam.fy * depth
+    R, t = cam_to_world.R, cam_to_world.t
+    return torch.stack([R[i, 0] * X + R[i, 1] * Y + R[i, 2] * depth + t[i] for i in range(3)],
+                       dim=-1)
+
+
 def fuse_depth_maps(
     depths,  # (F, H, W)
     Rs,      # (F, 3, 3) camera->world rotations

@@ -109,3 +109,17 @@ def load_adam_state(optimizer: torch.optim.Adam, module: torch.nn.Module, mu, nu
             "exp_avg": moments[name]["exp_avg"].to(p.device),
             "exp_avg_sq": moments[name]["exp_avg_sq"].to(p.device),
         }
+
+
+def tuple_from_numpy(cls, values, device):
+    """The port's NamedTuple ``cls`` (`MissionConfig`, `KalmanParams`,
+    `PIDController`, ...) from the JAX package's tuple of the same fields, or
+    any sequence of them: each array, read with ``np.array``, becomes a
+    tensor of its dtype on ``device``; Python numbers and tuples of numbers
+    (gains) carry over."""
+    def conv(v):
+        if v is None or isinstance(v, (bool, int, float, str, tuple)):
+            return v
+        return torch.as_tensor(np.array(v), device=device)
+
+    return cls(*(conv(v) for v in values))

@@ -12,6 +12,9 @@ the map-building subcommands), with the same flags and defaults:
   train-stereo PSMNet training on a left/ right/ disp/ directory, or on
              stereo pairs ray-cast from the urban scene (--sim N)
   mvs        posed images -> plane-sweep depth -> TSDF -> cleaned mesh PLY
+  occupancy  depth + poses -> log-odds occupancy .bt with carved free space
+  serve      listen for a live RGB-D frame stream and fuse it
+  mission-sim closed-loop autonomous mission in a simulated world
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
 on the card; ``--device cpu`` asks for the CPU.
@@ -26,6 +29,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 
 def _cmd_rgbd(args):
@@ -91,6 +95,128 @@ def _cmd_ply2bt(args):
     n_pts, n_vox, n = ply2bt(args.ply, args.out, args.res, args.max_points,
                              device=args.device)
     print(f"{n_pts} points -> {n_vox} voxels, {n} nodes -> {args.out}")
+
+
+def _cmd_occupancy(args):
+    """Occupancy mapping (occupied + carved free space) from the same
+    depth + poses contract as `rgbd`."""
+    from tpu3drec_torch.core.quaternion import quat_xyzw_to_matrix
+    from tpu3drec_torch.core.se3 import SE3
+    from tpu3drec_torch.core.unproject import depth_to_world_points_unfused
+    from tpu3drec_torch.mapping.occupancy import OccupancyMap
+    from tpu3drec_torch.utils.config import RGBDPipelineConfig, from_dict
+    from tpu3drec_torch.utils.depthio import load_depth
+    from tpu3drec_torch.utils.device import resolve_device
+    from tpu3drec_torch.utils.poseio import read_pose_txt
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = from_dict(RGBDPipelineConfig, json.load(f))
+    else:
+        cfg = RGBDPipelineConfig()
+    dev = resolve_device(args.device)
+    records = read_pose_txt(args.poses)
+    cam = cfg.camera.to_camera(device=dev)
+    m = OccupancyMap(res=args.res, max_samples=args.max_samples, device=dev)
+    for r in records:
+        depth = load_depth(
+            os.path.join(args.depth_dir, r.image_name),
+            mode=cfg.depth.mode, scale=cfg.depth.scale,
+            size=(cfg.camera.width, cfg.camera.height),
+        )
+        Rw2c = quat_xyzw_to_matrix(torch.as_tensor(r.q_xyzw, dtype=torch.float32)).numpy()
+        Rc2w = Rw2c.T
+        tc2w = -Rc2w @ np.asarray(r.t, np.float32)
+        pts = depth_to_world_points_unfused(
+            torch.as_tensor(depth, device=dev), cam,
+            SE3(torch.as_tensor(Rc2w, device=dev), torch.as_tensor(tc2w, device=dev)),
+        ).reshape(-1, 3)
+        valid = (depth.reshape(-1) > cfg.map.min_depth) & (depth.reshape(-1) < args.max_range)
+        m.insert_scan(tc2w, pts, valid)
+        n, n_occ, n_free = m.counts()
+        print(f"frame {r.frame_id}: {n} voxels ({n_occ} occ / {n_free} free)")
+    n = m.write_bt(args.out)
+    print(f"wrote {args.out}: {n} nodes")
+
+
+def _cmd_serve(args):
+    from tpu3drec_torch.data.stream import FrameStreamServer, stream_fuse
+    from tpu3drec_torch.utils.config import RGBDPipelineConfig, from_dict
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = from_dict(RGBDPipelineConfig, json.load(f))
+    else:
+        cfg = RGBDPipelineConfig()
+    if args.out_ply:
+        cfg.out_ply = args.out_ply
+    if args.out_bt:
+        cfg.out_bt = args.out_bt
+    server = FrameStreamServer(port=args.port)
+    print(f"listening on port {server.port}", flush=True)
+    res = stream_fuse(server, cfg, batch=args.batch, verbose=True, device=args.device)
+    print(f"stream done: {res.n_frames} frames -> {res.n_points} points, "
+          f"{res.n_voxels} voxels")
+
+
+def mission_sim(steps: int = 1200, cruise_alt: float = 4.0, device=None):
+    """The `mission-sim` world: two waypoints (the second a gate), a ring
+    gate at (9, 0.6, 4.4) and a landing pad at (13, 0.5, 0), seen through
+    pinhole projections (front camera for the gate, below camera for the
+    pad), flown for ``steps`` ticks of 0.1 s from the origin. Returns
+    (final state, positions (T, 3), phases (T,)) on ``device``."""
+    from tpu3drec_torch.autonomy.mission import Observation, mission_config, mission_rollout
+
+    cfg = mission_config([[2.0, 0.0, 4.0], [6.0, 0.0, 4.0]], [False, True], [3, 8],
+                         [160.0, 120.0], device=device, cruise_alt=cruise_alt,
+                         scan_ticks=10, pass_ticks=15, servo_gain=(0.02, 0.0, 0.005))
+    dev = cfg.waypoints.device
+    gate = torch.tensor([9.0, 0.6, 4.4], device=dev)
+    pad = torch.tensor([13.0, 0.5, 0.0], device=dev)
+    f, c0 = 200.0, cfg.image_center
+    hi, lo = torch.tensor(0.9, device=dev), torch.tensor(0.01, device=dev)
+    no_markers = torch.full((2,), -1, dtype=torch.int32, device=dev)
+
+    def observe(pos):
+        rel = gate - pos
+        depth = torch.clamp(rel[0], min=0.3)
+        relp = pad - pos
+        alt = torch.clamp(pos[2] - pad[2], min=0.3)
+        visible = (rel[0] > 0.5) & (torch.abs(rel[1]) < 4.0) & (torch.abs(rel[2]) < 4.0)
+        return Observation(
+            ring_px=torch.stack([c0[0] - f * rel[1] / depth, c0[1] - f * rel[2] / depth]),
+            ring_score=torch.where(visible, hi, lo),
+            blob_px=torch.stack([c0[0] - f * relp[1] / alt, c0[1] - f * relp[0] / alt]),
+            blob_found=(torch.abs(relp[0]) < 2.0) & (torch.abs(relp[1]) < 2.0),
+            altitude=pos[2], position=pos, marker_ids=no_markers)
+
+    return mission_rollout(cfg, observe, n_steps=steps, start=torch.zeros(3, device=dev), dt=0.1)
+
+
+def _cmd_mission_sim(args):
+    """Closed-loop autonomous mission in a simulated world: takeoff,
+    waypoints, ring-gate servoing, dash, ArUco-scan sweep, pad search,
+    landing. Exit code 0 only when the mission ends LANDED."""
+    import time
+
+    from tpu3drec_torch.autonomy.mission import Phase
+
+    t0 = time.perf_counter()
+    state, traj, phases = mission_sim(args.steps, args.cruise_alt, device=args.device)
+    phases = phases.cpu().numpy()
+    traj = traj.cpu().numpy()
+    secs = time.perf_counter() - t0
+    prev = -1
+    for i, ph in enumerate(phases):
+        if ph != prev:
+            print(f"t={i * 0.1:6.1f}s  {Phase(int(ph)).name:13s} pos={np.round(traj[i], 2)}")
+            prev = ph
+    print(f"final: {Phase(int(state.phase)).name} at {np.round(traj[-1], 2)}")
+    print(f"{args.steps} ticks in {secs:.3f}s: {args.steps / secs:.1f} ticks/s")
+    if args.out_traj:
+        np.savetxt(args.out_traj, traj, fmt="%.4f")
+        print(f"trajectory -> {args.out_traj}")
+    return 0 if int(state.phase) == int(Phase.LANDED) else 1
 
 
 def _cmd_sfm(args):
@@ -362,6 +488,32 @@ def main(argv=None):
     q.add_argument("--out", default="mesh.ply")
     q.add_argument("--out-points", dest="out_points", default="")
     q.set_defaults(fn=_cmd_mvs)
+
+    q = sub.add_parser("occupancy",
+                       help="depth+poses -> log-odds occupancy .bt (with free space)")
+    q.add_argument("--config")
+    q.add_argument("--poses", required=True)
+    q.add_argument("--depth-dir", dest="depth_dir", required=True)
+    q.add_argument("--res", type=float, default=0.1)
+    q.add_argument("--max-range", dest="max_range", type=float, default=50.0)
+    q.add_argument("--max-samples", dest="max_samples", type=int, default=128)
+    q.add_argument("--out", required=True)
+    q.set_defaults(fn=_cmd_occupancy)
+
+    q = sub.add_parser("serve", help="listen for a live RGB-D frame stream and fuse it")
+    q.add_argument("--config")
+    q.add_argument("--port", type=int, default=0,
+                   help="TCP port (0 = ephemeral, printed on start)")
+    q.add_argument("--batch", type=int, default=4, help="frames per device batch")
+    q.add_argument("--out-ply", dest="out_ply")
+    q.add_argument("--out-bt", dest="out_bt")
+    q.set_defaults(fn=_cmd_serve)
+
+    q = sub.add_parser("mission-sim", help="closed-loop autonomous mission in a simulated world")
+    q.add_argument("--steps", type=int, default=1200)
+    q.add_argument("--cruise-alt", dest="cruise_alt", type=float, default=4.0)
+    q.add_argument("--out-traj", dest="out_traj", default=None)
+    q.set_defaults(fn=_cmd_mission_sim)
 
     args = p.parse_args(argv)
     return args.fn(args)

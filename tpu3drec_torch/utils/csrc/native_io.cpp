@@ -19,6 +19,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <iterator>
+#include <string>
 #include <vector>
 
 namespace {
@@ -107,13 +108,44 @@ int64_t build_nodes(const std::vector<uint64_t>& m,
 }
 
 
-// Shortest decimal representation that round-trips (matches Python's repr,
-// so native and Python .bt headers are byte-identical).
+// Python's repr of a finite double, so native and Python .bt headers are
+// byte-identical: the shortest digits that round-trip, in fixed notation
+// with at least one digit after the point when the decimal exponent is in
+// [-4, 16), else as d[.ddd]e+XX.
 static void shortest_double(double v, char* buf, size_t n) {
-  for (int prec = 1; prec <= 17; ++prec) {
-    std::snprintf(buf, n, "%.*g", prec, v);
-    if (std::strtod(buf, nullptr) == v) return;
+  char sci[40];
+  for (int prec = 0; prec <= 16; ++prec) {
+    std::snprintf(sci, sizeof(sci), "%.*e", prec, v);
+    if (std::strtod(sci, nullptr) == v) break;
   }
+  // sci: [-]d[.ddd]e[+-]XX
+  const char* p = sci;
+  std::string sign;
+  if (*p == '-') {
+    sign = "-";
+    ++p;
+  }
+  std::string digits;
+  for (; *p && *p != 'e'; ++p)
+    if (*p != '.') digits.push_back(*p);
+  int exp = std::atoi(p + 1);
+  std::string out = sign;
+  if (exp >= -4 && exp < 16) {
+    if (exp < 0) {
+      out += "0." + std::string((size_t)(-exp - 1), '0') + digits;
+    } else if ((int)digits.size() <= exp + 1) {
+      out += digits + std::string((size_t)(exp + 1 - (int)digits.size()), '0') + ".0";
+    } else {
+      out += digits.substr(0, (size_t)exp + 1) + "." + digits.substr((size_t)exp + 1);
+    }
+  } else {
+    out += digits.substr(0, 1);
+    if (digits.size() > 1) out += "." + digits.substr(1);
+    char e[8];
+    std::snprintf(e, sizeof(e), "e%c%02d", exp < 0 ? '-' : '+', exp < 0 ? -exp : exp);
+    out += e;
+  }
+  std::snprintf(buf, n, "%s", out.c_str());
 }
 
 // Sorted unique morton codes from signed int32 voxel keys; returns false if

@@ -6,6 +6,7 @@ contracts, with output byte-identical to the JAX package's.
    quaternion is xyzw and (R|t) is the COLMAP **world->camera** convention.
 2. 4x4 homogeneous ``T_data.txt`` from the ICP scale-correction step.
 3. InteriorNet ``cam0.ccam`` camera poses (read only).
+4. COLMAP's own sparse-model ``images.txt`` (read only).
 """
 
 from __future__ import annotations
@@ -88,3 +89,33 @@ def read_ccam(path: str) -> list[tuple[np.ndarray, np.ndarray]]:
             vals = [float(v) for v in line.split()]
             out.append((np.array(vals[6:10]), np.array(vals[10:13])))
     return out
+
+
+def read_colmap_images_txt(path: str) -> list[PoseRecord]:
+    """COLMAP sparse-model ``images.txt``: header comments, then per image two
+    lines, ``IMAGE_ID qw qx qy qz tx ty tz CAMERA_ID NAME`` and its POINTS2D
+    line. Returns records with the quaternion converted to xyzw to match
+    :class:`PoseRecord`.
+
+    Lines pair by their position among the non-comment lines, empty lines
+    included: COLMAP writes an empty POINTS2D line for an image that observes
+    no point (the JAX package drops empty lines first, so such a file shifts
+    its pairs and fails to parse). An empty image line (blank lines at the
+    end of the file) is no record."""
+    records = []
+    with open(path) as f:
+        lines = [line.strip() for line in f if not line.startswith("#")]
+    for img_line in lines[0::2]:
+        if not img_line:
+            continue
+        cols = img_line.split()
+        qw, qx, qy, qz = (float(c) for c in cols[1:5])
+        records.append(
+            PoseRecord(
+                frame_id=int(cols[0]),
+                t=np.array([float(c) for c in cols[5:8]]),
+                q_xyzw=np.array([qx, qy, qz, qw]),
+                image_name=cols[9] if len(cols) > 9 else "",
+            )
+        )
+    return records
