@@ -102,10 +102,44 @@ Phases, one flushed line each with its wall seconds:
      `match_templates` and `decode_marker` on 480x640 frames rendered with
      numpy (a ring gate, a pad, a marker, a number board), on the card and
      on the CPU: integer outputs equal, floats within stated tolerances
+ 17. sharded (2 ranks of this script on the one card, joined over gloo
+     through a file store; every CUDA tensor of a collective staged through
+     host memory and counted): the ring search at phase 5's 76,800 x 76,800
+     cloud (2 ICP-NN launches a call on each rank, each held against the
+     plain version; d2 bit-equal to the single-process kernel's, indices
+     equal but at exact ties across shards), the sharded voxel count of
+     phase 4's map (equal to `unique_voxels`'), observation-sharded
+     `ba_solve(use_pallas_blocks=True)` (one BA-blocks launch an LM
+     iteration on each rank, held against the plain version) and
+     `ba_solve_landmark_sharded` on phase 7's 64-camera, 8,192-landmark,
+     65,536-observation problem (final costs within 1e-3 of the
+     single-process solves'), the x-sharded TSDF of phase 12's grid (each
+     slab equal to the whole grid's slice) and
+     `marching_tetrahedra_sharded_soup` (the single-process triangles, in
+     order), one data-parallel monocular step at 480x640 with a frame a
+     rank (loss within 1e-4 of the single-process batch-2 step's, gradients
+     within half their norm of it, the ranks' parameters equal, the Adam
+     update as phase 10 holds it) and one tensor-parallel step (model=2)
+     against the replicated step (loss within 1e-4, gradients within half
+     their norm)
+ 18. entry_points: the CLI's `rgbd` as 2 processes (`--coordinator
+     localhost:<port> --num-processes 2`) on phase 13's `.npy` frames, its
+     `.bt` byte-equal and its PLY the same point set as one process's; the
+     window split of phase 9's m00 frames through `tools/ate_torch.py
+     --nproc 2 --hold` (each window's exchanged poses the float32 rounding
+     of its own, in its own slot, the same on both processes; coverage
+     equal to phase 9's, |ATE difference| within M00_ATE_DELTA_PCT points
+     of the trajectory; every matcher launch of each process bit-equal to
+     the plain version)
 Phases 13, 15 and 16 launch none of the kernels and fail unless every count
 is still 0 after them; their numbers, and phase 14's, are the lines
 `occupancy`, `point_to_plane`, `serve` and `autonomy` before the kernels
-line.
+line; phases 17-18's are the line `multiprocess` (seconds, each rank's
+launches and staged bytes by collective, the backend). A failed or
+timed-out rank fails its phase. Phases 17-18 run on the card only
+(`--rehearse-cpu` skips them; `tests/test_torch_parallel*.py`,
+`tests/test_torch_multihost.py` and `tools/dryrun_multichip_torch.py
+--device cpu` run their paths on the CPU).
 Phase 4 also writes the `.bt` and the PLY of `run_arrays` with the writers'
 Python path (`run_arrays_s_python`, files byte-equal to the native ones) and
 an ASCII PLY of one frame's points by each backend (byte-equal).
@@ -115,7 +149,8 @@ activity, summed over the wrapper's __global__s, mean per call) and its
 host work included); `kernel_ms` mirrors `ms`. On the CPU `ms` is None.
 Each kernel's launch count is zeroed just before the path that runs it
 (phases 4-5 for icp_nn, the block-path solve of phase 7 for ba_blocks,
-phase 8 and again phase 9 for matcher) and read just after; phases 10, 11
+phase 8 and again phase 9 for matcher; in each rank of phases 17-18, the
+ring search, the observation-sharded solve and the window split) and read just after; phases 10, 11
 and 12, whose paths run none of them, each zero all three and fail unless
 each is still 0 after them. The last lines are the kernels as
 one JSON object (with each __global__'s registers and spill bytes as ptxas
@@ -143,11 +178,19 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): fp32 on the CUDA
-# cores and HBM3 bandwidth. The kernel's bound is the larger of its
-# operations and its bytes over these.
-FP32_FLOPS = 67e12
-HBM_BYTES_S = 3.35e12
+
+
+def bound(flops: float, bytes_moved: float):
+    """(ms, what bounds it): the least time of work on the card, the larger
+    of its fp32 operations over the peak rate and its bytes over the memory
+    rate, by the roofline of `tpu3drec_torch/utils/profiling.py` with one
+    H100 SXM's published peaks (`profiling.H100`)."""
+    from tpu3drec_torch.utils.profiling import H100, roofline
+
+    r = roofline(1.0, flops, bytes_moved, chip=H100)  # at 1 s the peak share is the bound
+    return r.fraction_of_peak * 1e3, "operations" if r.compute_bound else "bytes"
+
+
 NN_FLOP_PER_PAIR = 9  # the count the JAX package's cost model uses
 # Phase 11: the card's float32 gradients of the first stereo step against a
 # float64 run of it, as a share of the gradient's norm
@@ -196,6 +239,9 @@ def import_port():
     where = os.path.dirname(os.path.abspath(tpu3drec_torch.__file__))
     check(where == os.path.join(HERE, "tpu3drec_torch"),
           f"tpu3drec_torch imported from {where}, not from this checkout")
+    # the port's call recorders, for every phase after this one
+    global held_against, patched, recording
+    from tpu3drec_torch.utils.profiling import held_against, patched, recording
 
 
 def sync(dev):
@@ -258,61 +304,14 @@ def kernel_times(fn, names, dev, reps: int, warmup: int = 1):
     return sum(sum(v) / len(v) for v in us.values() if v) / 1e3, call_ms
 
 
-def _clone(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().clone()
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
-    if isinstance(x, (tuple, list)):
-        return tuple(_clone(v) for v in x)
-    return x
-
-
-@contextlib.contextmanager
-def patched(owner, names, wrap):
-    """Replaces ``owner.<name>`` by ``wrap(name, original)`` for each name,
-    and puts the originals back on the way out."""
-    saved = {n: getattr(owner, n) for n in names}
-    for n in names:
-        setattr(owner, n, wrap(n, saved[n]))
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(owner, n, fn)
-
-
-@contextlib.contextmanager
-def recording(module, name: str):
-    """Passes every call of ``module.name`` through unchanged and keeps
-    clones of its arguments and its result, so that what the main path's
-    own launches returned can be held against the plain version on the
-    inputs the path gave them."""
-    calls = []
-
-    def wrap(_, fn):
-        def wrapped(*args):
-            out = fn(*args)
-            calls.append((_clone(args), _clone(out)))
-            return out
-        return wrapped
-
-    with patched(module, (name,), wrap):
-        yield calls
-
-
 def hold_against_plain(calls, plain, name: str) -> float:
     """Each recorded call's result against ``plain`` on the same arguments,
-    bit for bit; returns the largest absolute difference (0.0)."""
+    bit for bit (`utils/profiling.py::held_against`); returns the largest
+    absolute difference (0.0)."""
     check(len(calls) > 0, f"{name}: the main path made no call")
-    max_err = 0.0
-    for i, (args, out) in enumerate(calls):
-        ref = plain(*args)
-        keys = list(ref) if isinstance(ref, dict) else range(len(ref))
-        for k in keys:
-            err = float((out[k].double() - ref[k].double()).abs().max()) if out[k].numel() else 0.0
-            check(torch.equal(out[k], ref[k]), f"{name} call {i} output {k}: max err {err}")
-            max_err = max(max_err, err)
+    equal, max_err, first = held_against(calls, plain)
+    check(equal == len(calls), f"{name}: {len(calls) - equal} of {len(calls)} calls differ, "
+          f"the first at (call, output) {first}, max err {max_err}")
     return max_err
 
 
@@ -392,24 +391,27 @@ def host_io_backends(depths, q, t, cfg, pts, dev, tmp: str):
     import dataclasses
     import functools
 
+    from tpu3drec_torch.mapping import btio
     from tpu3drec_torch.pipelines import rgbd
+    from tpu3drec_torch.utils import plyio
 
     pcfg = dataclasses.replace(cfg, out_ply=os.path.join(tmp, "map_py.ply"),
                                out_bt=os.path.join(tmp, "map_py.bt"))
-    saved = rgbd.write_bt, rgbd.write_ply
-    rgbd.write_bt = functools.partial(rgbd.write_bt, backend="python")
-    rgbd.write_ply = functools.partial(rgbd.write_ply, backend="python")
+    # the writers `run_arrays` reaches (through parallel/multihost.py)
+    saved = btio.write_bt, plyio.write_ply
+    btio.write_bt = functools.partial(btio.write_bt, backend="python")
+    plyio.write_ply = functools.partial(plyio.write_ply, backend="python")
     try:
         py = rgbd.run_arrays(depths, q, t, pcfg, device=dev)
     finally:
-        rgbd.write_bt, rgbd.write_ply = saved
+        btio.write_bt, plyio.write_ply = saved
     check(_same_bytes(cfg.out_bt, pcfg.out_bt), "native and Python .bt differ")
     check(_same_bytes(cfg.out_ply, pcfg.out_ply), "the two runs' PLY differ")
     paths = {b: os.path.join(tmp, f"ascii_{b}.ply") for b in ("auto", "python")}
     secs = {}
     for backend, path in paths.items():
         t0 = time.perf_counter()
-        rgbd.write_ply(path, pts, backend=backend)
+        plyio.write_ply(path, pts, backend=backend)
         secs[backend] = time.perf_counter() - t0
     check(_same_bytes(paths["auto"], paths["python"]), "native and Python ASCII PLY differ")
     return py.seconds, {"ascii_ply_points": int(pts.shape[0]),
@@ -493,8 +495,7 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
         # yardstick only: materialises the Nq x Nr matrix; the port never calls it
         library_ms = time_ms(lambda: torch.cdist(q, r).min(dim=1), dev, reps=3)
         torch.cuda.empty_cache()
-    t_ops = NN_FLOP_PER_PAIR * nq * nr / FP32_FLOPS
-    t_bytes = ((nq + nr) * 12 + nq * 8) / HBM_BYTES_S
+    bound_ms, bound_by = bound(NN_FLOP_PER_PAIR * nq * nr, (nq + nr) * 12 + nq * 8)
     return {
         "name": "icp_nn",
         "splits": _split_info("icp_nn", icp_nn.launch_plan(nq, nr, dev), dev) if gpu else None,
@@ -507,8 +508,8 @@ def phase_kernel(dev, rng, full_q, full_r, gpu: bool):
         "ms": kernel_ms,
         "call_ms": call_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
@@ -531,9 +532,7 @@ def _matcher_bound(P, Ka, Kb, D):
     """(ms, what bounds it): the fp32 operations of the products over the
     card's peak, or the bytes (descriptors and mask in, index and two
     scores out) over HBM, whichever is larger."""
-    t_ops = 2 * P * Ka * Kb * D / FP32_FLOPS
-    t_bytes = (((P * Ka + P * Kb) * D + P * Kb) * 4 + P * Ka * 12) / HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return bound(2 * P * Ka * Kb * D, ((P * Ka + P * Kb) * D + P * Kb) * 4 + P * Ka * 12)
 
 
 def _matcher_library_ms(a, b, dev) -> float:
@@ -680,7 +679,7 @@ def _ba_times(ba_blocks, ins, intr, dev, gpu: bool):
     plain_ms = time_ms(lambda: ba_blocks.ba_blocks_plain(*ins, intr), dev, reps=5 if gpu else 1,
                        warmup=1 if gpu else 0)
     return {"shape": [O], "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": (BA_FLOATS_IN + BA_FLOATS_OUT) * 4 * O / HBM_BYTES_S * 1e3}
+            "bound_ms": bound(0, (BA_FLOATS_IN + BA_FLOATS_OUT) * 4 * O)[0]}
 
 
 def phase_ba_blocks(dev, rng, gpu: bool, seed: int):
@@ -949,17 +948,24 @@ def _rehearsal_sequence(dev):
     return m
 
 
-def phase_long_sequence(dev, gpu: bool, ph):
+def phase_long_sequence(dev, gpu: bool, ph, frames_path: str):
     """The m00 loop on the card (the rehearsal's small sequence on the
-    CPU), every matcher launch recorded; returns (launches, the matcher's
-    long-sequence entry for the kernels line)."""
+    CPU), every matcher launch recorded; the card's frames are saved to
+    ``frames_path``. Returns (launches, the matcher's long-sequence entry
+    for the kernels line)."""
     from tpu3drec_torch.ops import matcher
 
+    if gpu:  # the frames are kept for phase 18's 2-process run of them
+        t0 = time.perf_counter()
+        frames = _ate_tool().render_sequence("m00", 150)
+        render_s = time.perf_counter() - t0
+        np.savez(frames_path, images=frames[0], depths=frames[1], gt_T=frames[2])
     matcher.reset_launches()
     with recording(matcher, "topk2_scores_batched") as calls:
         if gpu:
             m = _ate_tool().run_sequence("m00", 150, max_keypoints=512, window=12, stride=7,
-                                         depth_priors=True, device=dev)
+                                         depth_priors=True, device=dev, frames=frames)
+            m["render_s"] = render_s
         else:
             m = _rehearsal_sequence(dev)
     launches = matcher.launches
@@ -1458,14 +1464,15 @@ def phase_stereo(dev, gpu: bool, tmp: str, ph, seed: int, pool):
 # ---------------------------------------------------------------------------
 
 
-def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
+def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool, keep: dict):
     """The dense MVS path on the card: `run_mvs` on 12 rendered views of the
     urban scene at 480x640 with the reference camera and MvsConfig's
     defaults (96 planes, 4 sources, window 5; the depth range set to the
     scene's), the seconds of each stage, the grid and mesh sizes, the share
     of mesh vertices within 3 voxels of the rendered surface (>= 0.9), and
     one view's plane sweep held against the CPU. Returns the line's
-    numbers."""
+    numbers; ``keep`` receives the TSDF's inputs (masked depths, K, poses,
+    the grid's origin, dims, voxel size and band) for phase 17."""
     from scipy.spatial import cKDTree
 
     from tpu3drec_torch.data.capture_sim import PlanarScene
@@ -1506,6 +1513,10 @@ def phase_mvs(dev, gpu: bool, tmp: str, ph, seed: int, pool):
     out.update({k: round(v, 3) for k, v in res["timings"].items()})
     out["sweep_ms_per_view"] = 1e3 * res["timings"]["sweep_s"] / n_views
     grid = res["grid"]
+    keep.update(tsdf_depths=np.where(res["masks"], res["depths"], 0.0).astype(np.float32),
+                tsdf_K=K, tsdf_R=Rs.astype(np.float32), tsdf_t=ts.astype(np.float32),
+                tsdf_origin=grid.origin, tsdf_dims=np.array(grid.tsdf.shape),
+                tsdf_res=np.array(grid.res), tsdf_trunc=np.array(grid.trunc))
     out.update(grid=list(grid.tsdf.shape), grid_res=round(grid.res, 4),
                grid_bytes=2 * grid.tsdf.numel() * grid.tsdf.element_size(),
                points=int(res["points"].shape[0]), verts=int(res["verts"].shape[0]),
@@ -1929,12 +1940,448 @@ def phase_autonomy(dev, gpu: bool, ph, rng):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the multi-process runtime, as 2 ranks on the one card
+# ---------------------------------------------------------------------------
+
+WORLD = 2  # ranks; on one card they share cuda:0 and join over gloo
+# Phase 18: the 2-process m00/150 run against phase 9's single-process run
+# of the same frames, |ATE difference| in points of the trajectory. The
+# card's runs of one process spread over 0.096-0.359% (PERF.md section 5:
+# its `index_add_` atomics), so 2 processes may land anywhere in it.
+M00_ATE_DELTA_PCT = 0.5
+
+
+def spawn_ranks(work: str, timeout: float):
+    """Run the WORLD ranks of phase 17 (this script with ``--rank``),
+    joined through a file store in ``work``, within ``timeout`` seconds
+    (`parallel/multihost.py::spawn_local`); a rank that fails, or a world
+    that outlasts the timeout, fails the phase. Returns each rank's report
+    (``sharded.rank<r>.json``)."""
+    from tpu3drec_torch.parallel.multihost import spawn_local
+
+    cmd = [sys.executable, os.path.abspath(__file__), "--world", str(WORLD), "--work", work]
+    outs = spawn_local(lambda r: cmd + ["--rank", str(r)], WORLD, timeout, cwd=HERE)
+    reports = []
+    for r, out in enumerate(outs):
+        for line in out.strip().splitlines():
+            log(f"  [rank {r}] {line}")
+        with open(os.path.join(work, f"sharded.rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def rank_main(args) -> int:
+    """One rank of phase 17, started by `spawn_ranks`."""
+    import torch.distributed as dist
+
+    import_port()
+    from tpu3drec_torch.parallel import mesh as pm
+    from tpu3drec_torch.parallel.multihost import init_distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // args.world))
+    check(init_distributed("file://" + os.path.join(args.work, "sharded.store"), args.world,
+                           args.rank), "the process group did not start")
+    pm.reset_staged()
+    report = rank_sharded(args.rank, args.world, torch.device("cuda", 0), args.work)
+    report["staged_bytes"] = dict(pm.staged_bytes)
+    report["backend"] = dist.get_backend()
+    with open(os.path.join(args.work, f"sharded.rank{args.rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _grad_dict(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def _rel_norm(a: dict, b: dict) -> float:
+    """|a - b| / |b| over every tensor of ``b``."""
+    num = sum(float((a[k].double().cpu() - b[k].double().cpu()).square().sum()) for k in b)
+    return math.sqrt(num / sum(float(v.double().square().sum()) for v in b.values()))
+
+
+def rank_sharded(rank, world, dev, work) -> dict:
+    """This rank's part of phase 17 (see `phase_sharded`)."""
+    from tpu3drec_torch.models.training import TrainConfig, init_state, make_optimizer, make_train_step
+    from tpu3drec_torch.mvs.marching import marching_tetrahedra, marching_tetrahedra_sharded_soup
+    from tpu3drec_torch.mvs.tsdf import TsdfGrid, integrate_depth_maps, shard_grid
+    from tpu3drec_torch.ops import ba_blocks, icp_nn
+    from tpu3drec_torch.parallel import mesh as pm
+    from tpu3drec_torch.parallel.ba_sharded import ba_solve_landmark_sharded
+    from tpu3drec_torch.parallel.ring import ring_nearest_neighbors, sharded_voxel_count
+    from tpu3drec_torch.parallel.tp import shard_params_tp
+    from tpu3drec_torch.sfm import ba
+    from tpu3drec_torch.sfm import icp as icp_mod
+
+    z = dict(np.load(os.path.join(work, "sharded_inputs.npz")))
+    mesh = pm.make_mesh(data=1, space=world, device=dev)
+    rep, secs = {"rank": rank}, {}
+
+    def stage(name):
+        sync(dev)
+        secs[name] = time.perf_counter()
+
+    def done(name):
+        sync(dev)
+        secs[name] = time.perf_counter() - secs[name]
+
+    # ---- the ring search: 2 ICP-NN launches a call on each rank
+    q = pm.shard_batch(mesh, z["ring_q"], "space").contiguous()
+    r = pm.shard_batch(mesh, z["ring_r"], "space").contiguous()
+    ring_nearest_neighbors(q[:512], r[:512], mesh)  # warm-up: the library, the groups
+    with recording(icp_mod, "nearest_neighbors_cuda") as calls:
+        _reset_kernel_counts()
+        stage("ring")
+        idx, d2 = ring_nearest_neighbors(q, r, mesh)
+        done("ring")
+        rep["ring_launches"] = icp_nn.launches
+    rep["ring_max_abs_err"] = hold_against_plain(calls, icp_nn.nearest_neighbors_plain,
+                                                 "icp_nn (ring)")
+    rep["ring_calls_vs_plain"] = len(calls)
+    del calls[:]
+    check(rep["ring_launches"] == world,
+          f"the ring launched icp_nn {rep['ring_launches']} times on {world} shards")
+    # against the single-process kernel on the whole reference cloud
+    r_all = torch.as_tensor(z["ring_r"], device=dev).contiguous()
+    idx1, d21 = icp_mod.nearest_neighbors(q, r_all)
+    check(torch.equal(d2, d21), "ring d2 differs from the single-process kernel's")
+    diff = (idx.long() != idx1.long()).nonzero()[:, 0]
+    nr = r.shape[0]
+    if diff.numel():  # only exact ties across shards: the same distance, another shard
+        qa, ra, rb = q[diff].cpu(), r_all[idx[diff].long()].cpu(), r_all[idx1[diff].long()].cpu()
+
+        def sq(a, b):
+            d = a - b
+            return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+
+        check(torch.equal(sq(qa, ra), sq(qa, rb))
+              and bool(((idx[diff] // nr) != (idx1[diff] // nr)).all()),
+              f"{diff.numel()} ring indices differ from the single-process kernel's off a tie")
+    rep["ring_tie_swaps"] = int(diff.numel())
+    rep["ring_queries"] = int(q.shape[0])
+
+    # ---- the sharded voxel count of phase 4's map
+    keys = pm.shard_batch(mesh, z["vox_keys"], "space")
+    valid = pm.shard_batch(mesh, z["vox_valid"], "space")
+    stage("voxel_count")
+    count = int(sharded_voxel_count(keys, valid, mesh))
+    done("voxel_count")
+    check(count == int(z["vox_count"]), f"sharded voxel count {count}, unique_voxels' "
+          f"{int(z['vox_count'])}")
+    rep["voxel_count"] = count
+
+    # ---- observation-sharded BA on the block path, and landmark-sharded BA
+    F, L, O = (int(x) for x in z["ba_shape"])
+    prob = ba.BAProblem.from_numpy(*(z[f"ba_{k}"] for k in ("cam_params", "points", "cam_idx",
+                                                           "pt_idx", "uv", "weight", "K")),
+                                   device=dev)
+    obs = prob._replace(**{k: pm.shard_batch(mesh, getattr(prob, k), "space")
+                           for k in ("cam_idx", "pt_idx", "uv", "weight")})
+    ba.ba_solve(obs, max_lm_iters=1, cg_iters=2, use_pallas_blocks=True, mesh=mesh)  # warm-up
+    with recording(ba, "ba_blocks") as calls:
+        _reset_kernel_counts()
+        stage("ba_obs")
+        res = ba.ba_solve(obs, max_lm_iters=12, cg_iters=10, use_pallas_blocks=True, mesh=mesh)
+        done("ba_obs")
+        rep["ba_launches"] = ba_blocks.launches
+    rep["ba_max_abs_err"] = hold_against_plain(calls, ba_blocks.ba_blocks_plain,
+                                               "ba_blocks (observation-sharded)")
+    rep["ba_calls_vs_plain"] = len(calls)
+    del calls[:]
+    check(rep["ba_launches"] == res.n_iters,
+          f"ba_blocks launched {rep['ba_launches']} times in {res.n_iters} LM iterations")
+    rep.update(ba_obs_iters=res.n_iters, ba_obs_init=float(res.initial_cost),
+               ba_obs_final=float(res.final_cost))
+    ba_solve_landmark_sharded(prob, mesh, max_lm_iters=1, cg_iters=2)  # warm-up: jacfwd
+    stage("ba_landmark")
+    res_l = ba_solve_landmark_sharded(prob, mesh, max_lm_iters=12, cg_iters=10)
+    done("ba_landmark")
+    rep.update(ba_landmark_iters=res_l.n_iters, ba_landmark_final=float(res_l.final_cost))
+    if rank == 0:
+        # the single-process solves; the JAX tests' cost tolerance
+        # (tests/test_parallel.py:91-94): 1e-3 relative
+        for tag, blocks, got in (("obs", True, res), ("landmark", False, res_l)):
+            one = ba.ba_solve(prob, max_lm_iters=12, cg_iters=10, use_pallas_blocks=blocks)
+            rel = abs(float(got.final_cost) - float(one.final_cost)) / abs(float(one.final_cost))
+            rep[f"ba_{tag}_single_final"] = float(one.final_cost)
+            rep[f"ba_{tag}_cost_rel"] = rel
+            rep[f"ba_{tag}_cams_max_diff"] = float((got.cam_params - one.cam_params).abs().max())
+            check(rel <= 1e-3 or abs(float(got.final_cost) - float(one.final_cost)) <= 1e-6,
+                  f"{tag}-sharded BA cost {float(got.final_cost)} vs {float(one.final_cost)}")
+        _reset_kernel_counts()
+
+    # ---- the x-sharded TSDF and the sharded marching tetrahedra
+    gdims = tuple(int(x) for x in z["tsdf_dims"])
+    grid = TsdfGrid.allocate(z["tsdf_origin"], gdims, float(z["tsdf_res"]),
+                             trunc=float(z["tsdf_trunc"]), device=dev)
+    targs = (z["tsdf_depths"], z["tsdf_K"], z["tsdf_R"], z["tsdf_t"])
+    stage("tsdf_slab")
+    slab = integrate_depth_maps(shard_grid(grid, mesh, "space"), *targs)
+    done("tsdf_slab")
+    whole = integrate_depth_maps(grid, *targs)
+    n = slab.tsdf.shape[0]
+    check(torch.equal(slab.tsdf, whole.tsdf[slab.x0:slab.x0 + n])
+          and torch.equal(slab.weight, whole.weight[slab.x0:slab.x0 + n]),
+          "a TSDF slab differs from the whole grid's slice")
+    rep["tsdf_slab"] = [slab.x0, n]
+    host = (whole.tsdf.cpu().numpy(), whole.weight.cpu().numpy())
+    stage("marching")
+    soup = marching_tetrahedra_sharded_soup(*host, grid.origin, grid.res, mesh, axis="space",
+                                            cells_per_shard=int(z["mt_cap"]))
+    done("marching")
+    single = marching_tetrahedra(whole.tsdf, whole.weight, grid.origin, grid.res, device=dev)
+    check(soup.shape == single.shape and np.array_equal(soup, single),
+          f"sharded marching: {soup.shape} triangles against {single.shape}")
+    rep["triangles"] = int(soup.shape[0])
+    del whole, slab, host
+
+    # ---- one data-parallel monocular step, one frame a rank
+    h, w = (int(x) for x in z["mono_hw"])
+    cfg = TrainConfig(height=h, width=w)
+    seed = int(z["mono_seed"])
+    batch = {k: z[f"mono_{k}"] for k in ("target", "prev", "next")}
+    noise = torch.as_tensor(z["mono_noise"], device=dev)
+    model, state = init_state(seed, cfg, 1000, device=dev)
+    before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    mine = {k: v[rank:rank + 1] for k, v in batch.items()}
+    step = make_train_step(cfg, mesh=mesh, axis="space")
+    stage("dp_step")
+    _, loss, _ = step(state, mine, noise=noise)
+    done("dp_step")
+    rep["dp_loss"] = float(loss)
+    grads = _grad_dict(model)
+    sd = {k: p.detach() for k, p in model.named_parameters()}
+    # every rank took the same update: a sum of every parameter, all-reduced
+    total = torch.stack([v.double().sum() for v in sd.values()]).sum().reshape(1)
+    spread = pm.all_reduce(mesh, total, "space", "max") - pm.all_reduce(mesh, total, "space", "min")
+    check(float(spread[0]) == 0.0, f"the ranks' parameters differ after the step ({spread})")
+    # Adam: the update against torch's Adam on the CPU fed the step's
+    # gradients, within 1e-3 of lr plus 4 float32 ulps (phase 10's bound)
+    replay = {k: before[k].clone().requires_grad_(True) for k in grads}
+    for k, p in replay.items():
+        p.grad = grads[k].cpu()
+    make_optimizer(cfg, list(replay.values())).step()
+    ulp = torch.finfo(torch.float32).eps
+    lr = cfg.learning_rate
+    rep["dp_adam_excess"] = max(float(((sd[k].cpu() - p.detach()).abs()
+                                       - (1e-3 * lr + 4 * ulp * p.detach().abs())).max())
+                                for k, p in replay.items())
+    check(rep["dp_adam_excess"] <= 0, f"the DP step's Adam update is off by "
+          f"{rep['dp_adam_excess']} beyond its bound")
+    stage("dp_step_warm")  # a second step: the first's cuDNN autotuning is behind it
+    step(state, mine, noise=noise)
+    done("dp_step_warm")
+    del model, state, sd
+    if rank == 0:
+        # the single-process batch-2 step from the same seed, batch and noise
+        m1, s1 = init_state(seed, cfg, 1000, device=dev)
+        _, loss1, _ = make_train_step(cfg)(s1, batch, noise=noise)
+        rep["single_loss"] = float(loss1)
+        rep["dp_loss_rel"] = abs(float(loss) - float(loss1)) / abs(float(loss1))
+        rep["dp_grad_rel"] = _rel_norm(grads, _grad_dict(m1))
+        check(rep["dp_loss_rel"] <= 1e-4, f"DP loss {float(loss)} vs batch-2 {float(loss1)}")
+        check(rep["dp_grad_rel"] <= 0.5, f"DP gradients {rep['dp_grad_rel']} of their norm off "
+              "the batch-2 step's")
+        del m1, s1
+    del grads
+
+    # ---- one tensor-parallel step (model=2) against the replicated step
+    tp_mesh = pm.make_mesh(data=1, space=1, model=world, device=dev)
+    one = {k: v[:1] for k, v in batch.items()}
+    out = {}
+    for tag in ("replicated", "tp"):
+        model, state = init_state(seed, cfg, 1000, device=dev)
+        if tag == "tp":
+            shard_params_tp(model, tp_mesh)
+            state.optimizer = make_optimizer(cfg, model.parameters())
+            rep["tp_sharded_layers"] = sum(getattr(m, "tp_dim", None) is not None
+                                           for m in model.modules())
+        stage(f"{tag}_step")
+        _, loss, _ = make_train_step(cfg)(state, one, noise=noise[:, :1])
+        done(f"{tag}_step")
+        g = {}
+        for mname, m in model.named_modules():
+            for pname, p in m.named_parameters(recurse=False):
+                dim = getattr(m, "tp_dim", None)
+                t = p.grad.clone()
+                if dim is not None and pname in ("weight", "bias"):
+                    t = torch.cat(list(pm.all_gather(tp_mesh, t.contiguous(), "model").unbind(0)),
+                                  dim=dim if pname == "weight" else 0)
+                g[f"{mname}.{pname}"] = t
+        out[tag] = (float(loss), g)
+        rep[f"{tag}_loss"] = float(loss)
+        stage(f"{tag}_step_warm")
+        make_train_step(cfg)(state, one, noise=noise[:, :1])
+        done(f"{tag}_step_warm")
+        del model, state
+    rep["tp_loss_rel"] = abs(out["tp"][0] - out["replicated"][0]) / abs(out["replicated"][0])
+    rep["tp_grad_rel"] = _rel_norm(out["tp"][1], out["replicated"][1])
+    check(rep["tp_loss_rel"] <= 1e-4, f"TP loss {out['tp'][0]} vs {out['replicated'][0]}")
+    check(rep["tp_grad_rel"] <= 0.5, f"TP gradients {rep['tp_grad_rel']} of their norm off")
+    rep["seconds"] = secs
+    rep["kernel_launches_after"] = _kernel_counts()
+    return rep
+
+
+def phase_sharded(dev, tmp: str, ph, fused, a, b, mvs_in, seed: int):
+    """Phase 17, on 2 ranks sharing the card over gloo: the ring search at
+    phase 5's cloud, the sharded voxel count of phase 4's map,
+    observation-sharded BA on the block path and landmark-sharded BA at
+    phase 7's size, the x-sharded TSDF and sharded marching at phase 12's
+    grid, one data-parallel monocular step at 480x640 (one frame a rank)
+    against the single-process batch-2 step, and one tensor-parallel step
+    (model=2) against the replicated one. Returns (the ranks' reports, the
+    inputs' description)."""
+    from tpu3drec_torch.mapping.voxel import unique_voxels, voxelize
+
+    n = a.shape[0]
+    keys_t = voxelize(torch.as_tensor(fused, device=dev), 0.1)
+    valid_t = torch.ones(keys_t.shape[0], dtype=torch.bool, device=dev)
+    m = keys_t.shape[0] - keys_t.shape[0] % WORLD
+    vox_count = int(unique_voxels(keys_t[:m], valid_t[:m])[2])
+    F, L, O = 64, 8192, 65_536
+    prob = _ba_problem(np.random.default_rng([seed, 17]), "cpu", F, L, O)
+    h, w = H, W
+    g = np.random.default_rng([seed, 18])
+    inputs = dict(ring_q=a[: n - n % WORLD], ring_r=b[: n - n % WORLD],
+                  vox_keys=keys_t[:m].cpu().numpy(), vox_valid=valid_t[:m].cpu().numpy(),
+                  vox_count=np.array(vox_count), ba_shape=np.array([F, L, O]),
+                  mono_hw=np.array([h, w]), mono_seed=np.array(seed),
+                  mono_noise=g.standard_normal((2, WORLD, h, w)).astype(np.float32),
+                  mt_cap=np.array(65_536), **mvs_in)
+    for k in ("cam_params", "points", "cam_idx", "pt_idx", "uv", "weight", "K"):
+        inputs[f"ba_{k}"] = getattr(prob, k).cpu().numpy()
+    for k in ("target", "prev", "next"):
+        inputs[f"mono_{k}"] = g.uniform(size=(WORLD, h, w, 3)).astype(np.float32)
+    np.savez(os.path.join(tmp, "sharded_inputs.npz"), **inputs)
+    del keys_t, valid_t
+    reports = spawn_ranks(tmp, timeout=600)
+    r0 = reports[0]
+    ph.info.update(
+        ring=f"{r0['ring_queries']}x{r0['ring_queries'] * WORLD} per rank, "
+             f"launches {[r['ring_launches'] for r in reports]}, tie swaps "
+             f"{[r['ring_tie_swaps'] for r in reports]}",
+        voxel_count=r0["voxel_count"],
+        ba_obs=f"{r0['ba_obs_final']:.2f} vs {r0['ba_obs_single_final']:.2f} "
+               f"(rel {r0['ba_obs_cost_rel']:.2e})",
+        ba_landmark=f"{r0['ba_landmark_final']:.2f} vs {r0['ba_landmark_single_final']:.2f} "
+                    f"(rel {r0['ba_landmark_cost_rel']:.2e})",
+        triangles=r0["triangles"], dp_loss_rel=f"{r0['dp_loss_rel']:.2e}",
+        dp_grad_rel=f"{r0['dp_grad_rel']:.3f}", tp_loss_rel=f"{r0['tp_loss_rel']:.2e}",
+        tp_grad_rel=f"{r0['tp_grad_rel']:.3f}")
+    return reports
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_entry_points(dev, tmp: str, ph, frames_path: str, single: dict):
+    """Phase 18: the CLI's `rgbd` as 2 processes (``--coordinator
+    localhost:<port> --num-processes 2``) on phase 4's 16 frames (phase 13's
+    .npy depth and pose file), its `.bt` byte-equal and its PLY the same
+    point set as the single-process run's; then the window split of phase
+    9's frames through `tools/ate_torch.py --nproc 2 --hold`: each window's
+    poses exchanged exactly (the float32 rounding of its own, in its own
+    slot, the same on both processes), ATE and coverage beside phase 9's
+    single-process run of the same frames (coverage equal, |ATE
+    difference| <= M00_ATE_DELTA_PCT points), every matcher launch of each
+    process bit-equal to the plain version. Returns the line's numbers and
+    the processes' matcher launches."""
+    from tpu3drec_torch.parallel.multihost import spawn_local
+    from tpu3drec_torch.utils.plyio import read_ply
+
+    out = {}
+    cfg_path = os.path.join(tmp, "occ_cfg.json")
+    ddir = os.path.join(tmp, "depth_npy")
+    common = ["--config", cfg_path, "--poses",
+              os.path.join(tmp, f"occ_poses_{len(os.listdir(ddir))}.txt"), "--depth-dir", ddir]
+    cli = [sys.executable, "-m", "tpu3drec_torch.pipelines.cli"]
+    paths = {n: (os.path.join(tmp, f"rgbd_{n}.ply"), os.path.join(tmp, f"rgbd_{n}.bt"))
+             for n in ("one", "two")}
+    t0 = time.perf_counter()
+    p = subprocess.run(cli + ["rgbd"] + common + ["--out-ply", paths["one"][0],
+                                                  "--out-bt", paths["one"][1]],
+                       cwd=HERE, timeout=300, capture_output=True, text=True)
+    log(f"  [rgbd, 1 process] {(p.stdout + p.stderr).strip()}")
+    check(p.returncode == 0, f"the single-process rgbd exited {p.returncode}")
+    out["rgbd_one_s"] = time.perf_counter() - t0
+    port = _free_port()
+    t0 = time.perf_counter()
+    logs = spawn_local(lambda r: cli + ["--coordinator", f"localhost:{port}", "--num-processes",
+                                        str(WORLD), "--process-id", str(r), "rgbd"] + common
+                       + ["--out-ply", paths["two"][0], "--out-bt", paths["two"][1]],
+                       WORLD, 300, cwd=HERE)
+    out["rgbd_two_s"] = time.perf_counter() - t0
+    for r, text in enumerate(logs):
+        log(f"  [rgbd rank {r}] {text.strip()}")
+    out["bt_byte_equal"] = _same_bytes(paths["one"][1], paths["two"][1])
+    check(out["bt_byte_equal"], "the 2-process .bt differs from the single-process one")
+    p1, _ = read_ply(paths["one"][0])
+    p2, _ = read_ply(paths["two"][0])
+    out["ply_points"] = [int(p1.shape[0]), int(p2.shape[0])]
+    check(p1.shape == p2.shape and np.array_equal(np.unique(p1, axis=0), np.unique(p2, axis=0)),
+          f"the 2-process PLY's point set differs ({p2.shape} against {p1.shape})")
+
+    # the window split of the m00 loop through tools/ate_torch.py
+    row = os.path.join(tmp, "ate_nproc2.json")
+    cmd = [sys.executable, os.path.join(HERE, "tools", "ate_torch.py"), "--frames-from",
+           frames_path, "--nproc", str(WORLD), "--hold", "--out", row]
+    t0 = time.perf_counter()
+    # the tool's own limit on its processes (NPROC_TIMEOUT_S) ends first
+    p = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=_ate_tool().NPROC_TIMEOUT_S + 120)
+    out["ate_two_s"] = time.perf_counter() - t0
+    for line in (p.stdout + p.stderr).strip().splitlines()[-20:]:
+        log(f"  [ate --nproc {WORLD}] {line}")
+    check(p.returncode == 0, f"tools/ate_torch.py --nproc {WORLD} exited {p.returncode}")
+    with open(row) as f:
+        m = json.load(f)
+    by_proc = m["matcher_by_process"]
+    for i, k in enumerate(by_proc):
+        check(k["calls"] == k["bit_equal"] and k["launches"] == k["calls"],
+              f"process {i}: {k['bit_equal']} of {k['calls']} matcher calls bit-equal, "
+              f"{k['launches']} launches")
+    # the exchange: every window back in its slot, its poses the float32
+    # rounding of its own, and the same exchanged poses on every process
+    for i, e in enumerate(m["exchange_by_process"]):
+        check(e["own_windows"] > 0 and e["exact"] == e["own_windows"],
+              f"process {i}: {e['exact']} of its {e['own_windows']} windows exchanged exactly")
+    check(m["exchange_same_on_all"], "the processes hold different exchanged poses")
+    out.update(frames=m["frames"], windows=m["windows"], ate_pct=m["ate_pct_traj"],
+               coverage=m["coverage"], wall_s=m["wall_s"], stage_s=m["stage_s"],
+               single_ate_pct=single["ate_pct_traj"], single_coverage=single["coverage"],
+               single_wall_s=single["wall_s"], matcher_by_process=by_proc,
+               exchange_by_process=m["exchange_by_process"])
+    out["ate_delta_pct"] = abs(m["ate_pct_traj"] - single["ate_pct_traj"])
+    check(m["coverage"] == single["coverage"],
+          f"coverage {m['coverage']} with {WORLD} processes, {single['coverage']} with one")
+    check(out["ate_delta_pct"] <= M00_ATE_DELTA_PCT,
+          f"ATE {m['ate_pct_traj']}% with {WORLD} processes, {single['ate_pct_traj']}% with "
+          f"one (bound {M00_ATE_DELTA_PCT} points)")
+    ph.info.update({k: (f"{v:.4g}" if isinstance(v, float) else v) for k, v in out.items()
+                    if not isinstance(v, (dict, list))})
+    return out, [k["launches"] for k in by_proc]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="run phases 3-16 at a tiny size on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 17, started by the script itself
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=WORLD, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank is not None:
+        return rank_main(args)
     gpu = not args.rehearse_cpu
     rng = np.random.default_rng(args.seed)
 
@@ -2118,7 +2565,8 @@ def main(argv=None) -> int:
 
         # ---- phase 9: the long-sequence path --------------------------------
         with Phase("long_sequence") as ph:
-            n_long, long_seq = phase_long_sequence(dev, gpu, ph)
+            frames_path = os.path.join(tmp, "m00_frames.npz")
+            n_long, long_seq = phase_long_sequence(dev, gpu, ph, frames_path)
             m_row["max_abs_err"] = max(m_row["max_abs_err"], long_seq["max_abs_err"])
             m_row["long_sequence"] = long_seq
         # each path's count was zeroed just before it and read just after
@@ -2139,7 +2587,8 @@ def main(argv=None) -> int:
 
             # ---- phase 12: dense MVS -----------------------------------------
             with Phase("mvs") as ph:
-                mvs_row = phase_mvs(dev, gpu, tmp, ph, args.seed, pool)
+                mvs_in = {}
+                mvs_row = phase_mvs(dev, gpu, tmp, ph, args.seed, pool, mvs_in)
 
         # ---- phase 13: occupancy through the CLI ----------------------------
         with Phase("occupancy") as ph:
@@ -2160,6 +2609,40 @@ def main(argv=None) -> int:
         with Phase("autonomy") as ph:
             auto_row = phase_autonomy(dev, gpu, ph, rng)
 
+        mp_row = None
+        if gpu:
+            mp_row = {"world": WORLD, "device_shared": "cuda:0"}
+            # ---- phase 17: the sharded primitives, 2 ranks -------------------
+            with Phase("sharded") as ph:
+                t0 = time.perf_counter()
+                reports = phase_sharded(dev, tmp, ph, fused, a, b, mvs_in, args.seed)
+                mp_row["sharded_s"] = time.perf_counter() - t0
+            ring = [r["ring_launches"] for r in reports]
+            row["launches"] += sum(ring)
+            row["launches_by_path"]["ring"] = sum(ring)
+            row["max_abs_err"] = max([row["max_abs_err"]] + [r["ring_max_abs_err"] for r in reports])
+            obs = [r["ba_launches"] for r in reports]
+            b_row["launches"] += sum(obs)
+            b_row["launches_by_path"] = {"ba_solve": b_row["launches"] - sum(obs),
+                                         "observation_sharded_ba": sum(obs)}
+            b_row["max_abs_err"] = max([b_row["max_abs_err"]] + [r["ba_max_abs_err"]
+                                                                 for r in reports])
+            mp_row["sharded"] = {k: v for k, v in reports[0].items()
+                                 if k not in ("staged_bytes", "backend")}
+            mp_row["launches_by_rank"] = {"icp_nn_ring": ring, "ba_blocks_sharded": obs}
+            mp_row["staged_bytes_by_rank"] = {"sharded": [r["staged_bytes"] for r in reports]}
+            mp_row["backend"] = reports[0]["backend"]
+
+            # ---- phase 18: the entry points, 2 processes ----------------------
+            with Phase("entry_points") as ph:
+                t0 = time.perf_counter()
+                entry, split = phase_entry_points(dev, tmp, ph, frames_path, long_seq["run"])
+                mp_row["entry_points_s"] = time.perf_counter() - t0
+            m_row["launches"] += sum(split)
+            m_row["launches_by_path"]["window_split"] = sum(split)
+            mp_row["launches_by_rank"]["matcher_window_split"] = split
+            mp_row["entry_points"] = entry
+
     rows = [row, m_row, b_row]
     for r, src in zip(rows, ("icp_nn", "matcher", "ba_blocks")):
         # registers and spill bytes of each __global__, from ptxas's report
@@ -2170,6 +2653,8 @@ def main(argv=None) -> int:
             check(r["launches"] > 0, f"the main path never launched {r['name']}")
     lines = {"monocular": mono, "stereo": stereo_row, "mvs": mvs_row, "occupancy": occ_row,
              "point_to_plane": p2p_row, "serve": serve_row, "autonomy": auto_row}
+    if mp_row is not None:
+        lines["multiprocess"] = mp_row
     for name, line in lines.items():
         line.update(device=torch.cuda.get_device_name(0) if gpu else "cpu", nvidia_smi=smi)
         log(f"{name} " + json.dumps(line))

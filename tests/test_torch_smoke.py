@@ -7,13 +7,17 @@
 * Neither the port (its Python, CUDA and C++ sources), the script nor the
   port's tools (`tools/ate_torch.py`, `train_convergence_torch.py`,
   `trace_monocular.py`, `twin_runs_torch.py`, `grad_accuracy_torch.py`,
-  `stereo_convergence_torch.py`, `trace_stereo_mvs.py`) imports JAX, flax, optax, orbax, the
+  `stereo_convergence_torch.py`, `trace_stereo_mvs.py`,
+  `dryrun_multichip_torch.py`) imports JAX, flax, optax, orbax, the
   JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
 * On a card (marker `gpu`), the ICP-NN, matcher and BA-blocks kernels
   equal their plain versions bit for bit, and a monodepth train step, a
   PSMNet train step, a plane sweep and an occupancy scan on the card agree
   with the same on the CPU; point-to-plane ICP launches the ICP-NN kernel
-  once an iteration. This file imports no JAX, so on a machine without it the test
+  once an iteration; as 2 gloo ranks sharing the card, the ring search
+  launches the ICP-NN kernel once a step and equals the single-process
+  kernel, and the transfer helper stages each CUDA tensor through host
+  memory and counts its bytes. This file imports no JAX, so on a machine without it the test
   runs as `PYTHONPATH=. python -m pytest --noconftest -m gpu
   tests/test_torch_smoke.py` (tests/conftest.py imports JAX).
 """
@@ -120,7 +124,8 @@ def _sources():
            os.path.join(ROOT, "tools", "twin_runs_torch.py"),
            os.path.join(ROOT, "tools", "grad_accuracy_torch.py"),
            os.path.join(ROOT, "tools", "stereo_convergence_torch.py"),
-           os.path.join(ROOT, "tools", "trace_stereo_mvs.py")]
+           os.path.join(ROOT, "tools", "trace_stereo_mvs.py"),
+           os.path.join(ROOT, "tools", "dryrun_multichip_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return out
@@ -575,3 +580,76 @@ def test_estimate_normals_past_the_eigh_batch_limit_on_the_card():
     nrm = icp.estimate_normals(torch.as_tensor(p, dtype=torch.float32, device="cuda"))
     assert nrm.shape == (40_000, 3)
     assert float((nrm[:, 2].abs() - 1).abs().max()) < 1e-4
+
+
+# ------------------------------------------------- 2 ranks sharing the card
+
+
+def _two_ranks_on_the_card(tmp_path, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_world import run_world
+
+    return run_world(os.path.abspath(__file__), tmp_path, world=2, timeout=300,
+                     extra_args=(mode,))
+
+
+@pytest.mark.gpu
+def test_two_rank_ring_search_on_the_card(tmp_path):
+    """20,000 x 20,000 points over 2 ranks on cuda:0: one ICP-NN launch a
+    ring step, d2 bit-equal to the single-process kernel's, indices equal
+    (random points: no exact ties), the shard passed through host memory."""
+    for r in _two_ranks_on_the_card(tmp_path, "ring"):
+        assert int(r["launches"]) == 2
+        assert bool(r["d2_equal"]) and bool(r["idx_equal"])
+        assert int(r["ppermute_bytes"]) == 10_000 * 3 * 4
+
+
+@pytest.mark.gpu
+def test_transfer_helper_stages_cuda_tensors_under_gloo(tmp_path):
+    """all_reduce, all_gather and ppermute of CUDA tensors under gloo:
+    results on the card, right, and every byte staged counted."""
+    for r in _two_ranks_on_the_card(tmp_path, "staging"):
+        assert bool(r["ok"])
+        assert list(r["staged"]) == [4000, 4000, 4000]
+
+
+def _rank(argv):
+    from torch_world import join
+
+    from tpu3drec_torch.parallel import mesh as pm
+
+    rank, world, d = join(argv)
+    mesh = pm.make_mesh(data=1, space=world, device="cuda")
+    out = {}
+    if argv[4] == "ring":
+        from tpu3drec_torch.parallel.ring import ring_nearest_neighbors
+        from tpu3drec_torch.sfm.icp import nearest_neighbors
+
+        rng = np.random.default_rng(0)
+        q = rng.normal(size=(20_000, 3)).astype(np.float32)
+        r = rng.normal(size=(20_000, 3)).astype(np.float32)
+        qs, rs = pm.shard_batch(mesh, q, "space"), pm.shard_batch(mesh, r, "space")
+        pm.reset_staged()
+        icp_nn.reset_launches()
+        idx, d2 = ring_nearest_neighbors(qs, rs, mesh)
+        out["launches"] = icp_nn.launches
+        out["ppermute_bytes"] = pm.staged_bytes.get("ppermute", 0)
+        i1, d1 = nearest_neighbors(qs, torch.as_tensor(r, device="cuda"))
+        out["d2_equal"], out["idx_equal"] = torch.equal(d2, d1), torch.equal(idx, i1)
+    else:
+        x = torch.full((1000,), float(rank + 1), device="cuda")
+        pm.reset_staged()
+        s = pm.all_reduce(mesh, x, "space")
+        g = pm.all_gather(mesh, x, "space")
+        p = pm.ppermute(mesh, x, "space")
+        out["ok"] = (s.is_cuda and g.is_cuda and p.is_cuda and bool((s == 3).all())
+                     and g.shape == (2, 1000) and bool((g[1] == 2).all())
+                     and bool((p == 2 - rank).all()))
+        out["staged"] = [pm.staged_bytes[k] for k in ("all_reduce", "all_gather", "ppermute")]
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
+
+
+if __name__ == "__main__":
+    _rank(sys.argv)

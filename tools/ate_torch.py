@@ -12,11 +12,28 @@ defocus, vignetting, exposure jitter and sensor noise of
 Frames are ray-cast in parallel worker processes; the noise is then drawn
 serially in frame order, as the benchmark draws it.
 
+With ``--nproc N`` the windows are split over N processes, as the
+benchmark's ``--nproc`` does (`pipelines/kitti.py`'s window split over a
+process group): this process renders the frames once, then starts N
+processes on one coordinator (all on the one card, or ``--device``), each
+reconstructs its slice of the windows, the window poses are exchanged, and
+process 0 writes the row; the processes have NPROC_TIMEOUT_S seconds.
+``--hold`` records every launch of the batched matcher kernel in the run
+(each process's, with ``--nproc``) and holds each against the kernel's
+plain version on the same inputs, bit for bit; with ``--nproc`` it also
+holds the window-pose exchange to its inputs: each window a process
+reconstructed comes back in its own slot with its own frames and the
+float32 rounding of its poses, bit for bit, and every process holds the
+same exchanged poses. The row then gives each process's launches, largest
+difference and exchanged windows.
+
 Usage:
   python tools/ate_torch.py --seq m00 --frames 150            # on the card
   python tools/ate_torch.py --seq m00 --frames 16 --device cpu
   python tools/ate_torch.py --seq m00 --frames 150 --out ate_m00.json
   python tools/ate_torch.py --seq m00 --frames 150 --degrade
+  python tools/ate_torch.py --seq m00 --frames 150 --nproc 2
+  python tools/ate_torch.py --frames-from frames.npz --nproc 2  # frames saved by --save-frames
 """
 
 from __future__ import annotations
@@ -32,6 +49,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
+
+# seconds for the N processes of ``--nproc`` (m00/150 on 2 processes
+# takes ~1-1.5 minutes on an H100)
+NPROC_TIMEOUT_S = 900
 
 # KITTI-like geometry at half resolution
 WIDTH, HEIGHT = 640, 192
@@ -217,8 +238,9 @@ def render_sequence(name: str, n_frames: int, workers: int | None = None,
 
 def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int = 12,
                  stride: int = 7, depth_priors: bool = True, workers: int | None = None,
-                 device=None, degrade: bool = False):
-    """Render sequence ``name`` and run it through `run_windowed_sfm` on
+                 device=None, degrade: bool = False, frames=None):
+    """Render sequence ``name`` (or take ``frames``, the (images, depths,
+    gt_T) of `render_sequence`) and run it through `run_windowed_sfm` on
     ``device`` (None means the card) with the benchmark's settings (loop
     closure, closure gap 30). Returns the metrics of `evaluate_sequence`
     and the seconds of rendering and of each stage, unrounded."""
@@ -226,8 +248,11 @@ def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int
         KittiRunConfig, evaluate_sequence, run_windowed_sfm)
 
     t0 = time.perf_counter()
-    images, depths, gt_T = render_sequence(name, n_frames, workers=workers, degrade=degrade)
-    render_s = time.perf_counter() - t0
+    if frames is None:
+        images, depths, gt_T = render_sequence(name, n_frames, workers=workers, degrade=degrade)
+        render_s = time.perf_counter() - t0
+    else:
+        (images, depths, gt_T), render_s = frames, None
     K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
     cfg = KittiRunConfig(window=window, stride=stride, max_keypoints=max_keypoints,
                          loop_closure=True, lc_min_gap=30)
@@ -242,10 +267,75 @@ def run_sequence(name: str, n_frames: int, max_keypoints: int = 512, window: int
              render_s=render_s, frames_per_s=len(images) / wall,
              ate_pct_traj=100.0 * m["ate_rms"] / m["traj_len"],
              stage_s=state["seconds"], windows=len(state["window_seconds"]),
+             windows_owned=len(recs),
              window_s=[None if w is None else sum(w.values()) for w in state["window_seconds"]],
              window_stage_s=_stage_sums(state["window_seconds"]),
              closures=len(state["closures"]))
     return m
+
+
+def _held_run(run):
+    """``run()`` with every call of the batched matcher recorded, and every
+    window-pose exchange (`kitti._allgather_window_locals`, called when the
+    windows are split over processes). Each matcher call is then held
+    against `topk2_scores_batched_plain` on its own inputs, and each
+    exchange's output against its input: every window this process
+    reconstructed must come back in its slot with the same frames and the
+    float32 rounding of its poses. Returns (run's result, [launches,
+    calls, calls bit-equal, largest absolute difference, own windows, own
+    windows exchanged exactly], the exchanged windows' digest: per window
+    its frame count, frame-id sum and pose sum)."""
+    from tpu3drec_torch.ops import matcher
+    from tpu3drec_torch.pipelines import kitti
+    from tpu3drec_torch.utils.profiling import held_against, recording
+
+    matcher.reset_launches()
+    with recording(matcher, "topk2_scores_batched") as calls, \
+            recording(kitti, "_allgather_window_locals") as exchanges:
+        m = run()
+    launches = matcher.launches
+    equal, err, _ = held_against(calls, matcher.topk2_scores_batched_plain)
+    own = exact = 0
+    digest = np.zeros((0, 3))
+    for (window_locals, my_windows, _), out in exchanges:
+        for w in my_windows:
+            if window_locals[w]:
+                own += 1
+                exact += (out[w] is not None and sorted(out[w]) == sorted(window_locals[w])
+                          and all(np.array_equal(out[w][f], np.float32(T).astype(np.float64))
+                                  for f, T in window_locals[w].items()))
+        digest = np.array([[0, 0, 0] if d is None else
+                           [len(d), sum(d), sum(float(T.sum()) for T in d.values())]
+                           for d in out], np.float64)
+    return m, np.array([launches, len(calls), equal, err, own, exact], np.float64), digest
+
+
+def _spawn(args, frames_path: str) -> int:
+    """Run ``args.nproc`` processes of this tool as the ranks of the window
+    split, on one file-store coordinator, within NPROC_TIMEOUT_S
+    (`parallel/multihost.py::spawn_local`); print their output."""
+    import tempfile
+
+    from tpu3drec_torch.parallel.multihost import spawn_local
+
+    with tempfile.TemporaryDirectory(prefix="ate_torch_") as tmp:
+        cmd = [sys.executable, os.path.abspath(__file__), "--seq", args.seq,
+               "--frames", str(args.frames), "--max-keypoints", str(args.max_keypoints),
+               "--nproc", str(args.nproc), "--frames-from", frames_path, "--coord",
+               "file://" + os.path.join(tmp, "store")]
+        if args.no_depth_priors:
+            cmd.append("--no-depth-priors")
+        if args.degrade:
+            cmd.append("--degrade")
+        if args.device:
+            cmd += ["--device", args.device]
+        if args.hold:
+            cmd.append("--hold")
+        if args.out:
+            cmd += ["--out", args.out]
+        outs = spawn_local(lambda r: cmd + ["--worker", str(r)], args.nproc, NPROC_TIMEOUT_S)
+    print("".join(outs), end="", flush=True)
+    return 0
 
 
 def _stage_sums(window_seconds):
@@ -268,10 +358,65 @@ def main(argv=None):
     p.add_argument("--workers", type=int, default=None, help="render processes (default: CPUs)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--out", default=None, help="also write the metrics as JSON here")
+    p.add_argument("--nproc", type=int, default=1,
+                   help=">1: split the windows over N processes (pipelines/kitti.py)")
+    p.add_argument("--frames-from", default=None,
+                   help="an .npz of images, depths and gt_T (--save-frames) to run")
+    p.add_argument("--save-frames", default=None, help="save the rendered frames here")
+    p.add_argument("--hold", action="store_true",
+                   help="hold every matcher launch against its plain version, and the "
+                        "window-pose exchange against each window's own poses")
+    p.add_argument("--worker", type=int, default=None)   # internal: this process's rank
+    p.add_argument("--coord", default=None)              # internal: the coordinator
     args = p.parse_args(argv)
-    m = run_sequence(args.seq, args.frames, max_keypoints=args.max_keypoints,
-                     depth_priors=not args.no_depth_priors, workers=args.workers,
-                     device=args.device, degrade=args.degrade)
+
+    frames = None
+    if args.frames_from:
+        with np.load(args.frames_from) as z:
+            frames = (z["images"], z["depths"], z["gt_T"])
+    if args.nproc > 1 and args.worker is None:
+        # the parent: render once, then start the processes on the frames
+        if args.frames_from:
+            return _spawn(args, args.frames_from)
+        import tempfile
+
+        frames = render_sequence(args.seq, args.frames, workers=args.workers,
+                                 degrade=args.degrade)
+        with tempfile.TemporaryDirectory(prefix="ate_frames_") as tmp:
+            path = args.save_frames or os.path.join(tmp, "frames.npz")
+            np.savez(path, images=frames[0], depths=frames[1], gt_T=frames[2])
+            return _spawn(args, path)
+    if args.worker is not None:
+        from tpu3drec_torch.parallel.multihost import init_distributed
+
+        if not init_distributed(args.coord, args.nproc, args.worker):
+            raise RuntimeError("the process group did not start")
+    elif args.save_frames:
+        frames = frames or render_sequence(args.seq, args.frames, workers=args.workers,
+                                           degrade=args.degrade)
+        np.savez(args.save_frames, images=frames[0], depths=frames[1], gt_T=frames[2])
+    run = lambda: run_sequence(  # noqa: E731
+        args.seq, args.frames, max_keypoints=args.max_keypoints,
+        depth_priors=not args.no_depth_priors, workers=args.workers, device=args.device,
+        degrade=args.degrade, frames=frames)
+    if args.hold:
+        m, held, digest = _held_run(run)
+        if args.nproc > 1:
+            from tpu3drec_torch.parallel.multihost import process_allgather
+
+            held = process_allgather(held)
+            digests = process_allgather(digest)
+            m["exchange_same_on_all"] = bool((digests == digests[:1]).all())
+            m["exchange_by_process"] = [{"own_windows": int(h[4]), "exact": int(h[5])}
+                                        for h in held]
+        m["matcher_by_process"] = [{"launches": int(h[0]), "calls": int(h[1]),
+                                    "bit_equal": int(h[2]), "max_abs_err": float(h[3])}
+                                   for h in np.reshape(held, (-1, 6))]
+    else:
+        m = run()
+    m["nproc"] = args.nproc
+    if args.worker:  # only process 0 writes the row
+        return 0
     line = json.dumps(m)
     print(line, flush=True)
     if args.out:

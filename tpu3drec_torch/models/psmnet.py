@@ -165,12 +165,19 @@ def disparity_to_depth(disp: torch.Tensor, fx: float, baseline: float = 0.1,
     return fx * baseline / torch.maximum(disp, disp.new_full((), min_disp))
 
 
-def smooth_l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """PSMNet's training loss: smooth-L1 over valid-disparity pixels."""
+def smooth_l1_terms(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):
+    """(sum of the smooth-L1 over valid pixels, the number of valid
+    pixels): the numerator and denominator of `smooth_l1_loss`."""
     d = pred - gt
     ad = torch.abs(d)
     loss = torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5)
-    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(loss * mask), torch.sum(mask)
+
+
+def smooth_l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """PSMNet's training loss: smooth-L1 over valid-disparity pixels."""
+    num, den = smooth_l1_terms(pred, gt, mask)
+    return num / torch.clamp(den, min=1.0)
 
 
 @torch.no_grad()

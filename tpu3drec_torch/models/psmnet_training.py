@@ -8,6 +8,10 @@ statistics and ``torch.optim.Adam`` (optax's defaults) the moments:
 and `make_stereo_eval(model)` takes no parameter trees. The step runs in
 IEEE float32 (`core/fp.py::ieee_fp32`, no TF32); ``compute_dtype=
 "bfloat16"`` runs the net under bf16 autocast and the loss in float32.
+With a mesh the step is data-parallel over ``axis`` (as
+`models/training.py::make_train_step`): batch norms over the global batch,
+the loss the global batch's (its valid-pixel count all-reduced), the
+gradients all-reduced.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ import numpy as np
 import torch
 
 from tpu3drec_torch.core import fp
-from tpu3drec_torch.models.psmnet import PSMNet, smooth_l1_loss
+from tpu3drec_torch.models.psmnet import PSMNet, smooth_l1_terms
 from tpu3drec_torch.models.training import (
-    TrainState, autocast, init_flax_params, make_optimizer)
+    TrainState, autocast, data_parallel, init_flax_params, make_optimizer, sync_gradients)
+from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
 
 
@@ -58,11 +63,13 @@ def to_model(model: torch.nn.Module, x, image: bool = False) -> torch.Tensor:
     return x.permute(0, 3, 1, 2) if image else x
 
 
-def make_stereo_train_step(cfg: StereoTrainConfig):
+def make_stereo_train_step(cfg: StereoTrainConfig, mesh=None, axis: str = "data"):
     """``train_step(state, batch) -> (state, loss)``: batch dict with
     "left"/"right" (N, H, W, 3) in [0, 1], "disp" (N, H, W) ground-truth
     disparity in pixels and "mask" (N, H, W) validity, as numpy arrays or
-    tensors. The loss is float32 whatever the net's compute dtype."""
+    tensors. The loss is float32 whatever the net's compute dtype. With
+    ``mesh``, ``batch`` is this rank's shard of the global batch and the
+    loss returned is the global batch's."""
 
     def train_step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
@@ -70,16 +77,23 @@ def make_stereo_train_step(cfg: StereoTrainConfig):
         gt, mask = (to_model(model, batch[k]) for k in ("disp", "mask"))
         with fp.ieee_fp32():
             opt.zero_grad(set_to_none=True)
-            with autocast(cfg, left.device):
+            with autocast(cfg, left.device), data_parallel(mesh, axis):
                 disp = model(left, right, train=True)
-            loss = smooth_l1_loss(disp.to(torch.promote_types(disp.dtype, torch.float32)),
-                                  gt, mask)
+            num, den = smooth_l1_terms(
+                disp.to(torch.promote_types(disp.dtype, torch.float32)), gt, mask)
+            if mesh is not None:
+                den = all_reduce(mesh, den, axis)  # the global batch's valid pixels
+            loss = num / torch.clamp(den, min=1.0)
             loss.backward()
+            sync_gradients(model.parameters(), mesh, axis, 1)
             for group in opt.param_groups:
                 group["lr"] = state.schedule(state.step)
             opt.step()
         state.step += 1
-        return state, loss.detach()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce(mesh, loss, axis)
+        return state, loss
 
     return train_step
 

@@ -14,9 +14,13 @@ running statistics per call, whatever ``nn.Module.training`` says.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu3drec_torch.parallel.mesh import all_reduce_grad
 
 # stage channel widths per depth, torchvision layout
 _STAGES = {
@@ -24,6 +28,27 @@ _STAGES = {
     34: ((64, 64, 128, 256, 512), (3, 4, 6, 3), False),
     50: ((64, 256, 512, 1024, 2048), (3, 4, 6, 3), True),
 }
+
+
+# (mesh, axis) while `global_batch` is active: train-mode batch norms then
+# reduce their moments over the ranks of the axis
+_GLOBAL_BATCH = None
+
+
+@contextlib.contextmanager
+def global_batch(mesh, axis):
+    """Inside, every `BatchNorm` in train mode takes its statistics over the
+    global batch, whose equal shards lie on the ranks of ``mesh``'s
+    ``axis``: each moment is the mean of the ranks' local moments, by an
+    all-reduce that autograd goes through (`parallel/mesh.py::
+    all_reduce_grad`), as the JAX package's batch norm reduces over a
+    sharded batch."""
+    global _GLOBAL_BATCH
+    saved, _GLOBAL_BATCH = _GLOBAL_BATCH, (mesh, axis)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH = saved
 
 
 class BatchNorm(nn.Module):
@@ -50,8 +75,12 @@ class BatchNorm(nn.Module):
         dims = (0,) + tuple(range(2, x.ndim))
         if train:
             mean = xf.mean(dim=dims)
-            var = torch.maximum((xf * xf).mean(dim=dims) - mean * mean,
-                                mean.new_zeros(()))
+            mean_sq = (xf * xf).mean(dim=dims)
+            if _GLOBAL_BATCH is not None:
+                mesh, axis = _GLOBAL_BATCH
+                moments = all_reduce_grad(mesh, torch.stack([mean, mean_sq]), axis)
+                mean, mean_sq = (moments / mesh.axis_size(axis)).unbind(0)
+            var = torch.maximum(mean_sq - mean * mean, mean.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

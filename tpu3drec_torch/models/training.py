@@ -9,7 +9,12 @@ Where the JAX package keeps parameters, batch statistics and the optimizer
 state in one pytree, here the module holds the weights and the statistics
 and ``torch.optim.Adam`` the moments: `init_state` returns the model and a
 `TrainState` that holds both, and the step updates them in place.
-Gradients come from autograd. ``compute_dtype="float32"`` is IEEE float32
+Gradients come from autograd. Data parallelism: with a mesh
+(`parallel/mesh.py`) the step takes this rank's shard of the global batch
+(equal shards on the ranks of ``axis``); batch norms reduce over the
+global batch (`models/resnet.py::global_batch`), the loss is the global
+batch's mean, and the gradients are all-reduced to match it, so every rank
+takes the same Adam update. ``compute_dtype="float32"`` is IEEE float32
 on the card too (`core/fp.py::ieee_fp32`, no TF32), so the card agrees with
 a CPU run of the same code; ``"bfloat16"`` runs the nets under bf16
 autocast, and the loss in float32 either way.
@@ -33,6 +38,8 @@ from tpu3drec_torch.models.monodepth import (
     resize_bilinear,
     transformation_from_parameters,
 )
+from tpu3drec_torch.models.resnet import global_batch
+from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
 
 
@@ -182,33 +189,68 @@ def _batch_to_device(batch: dict, like: torch.Tensor) -> dict:
     return {k: torch.as_tensor(v, dtype=like.dtype, device=like.device) for k, v in batch.items()}
 
 
-def make_train_step(cfg: TrainConfig):
+def data_parallel(mesh, axis):
+    """The context of a data-parallel forward pass: batch norms over the
+    global batch with a mesh, nothing without one."""
+    return contextlib.nullcontext() if mesh is None else global_batch(mesh, axis)
+
+
+def sync_gradients(params, mesh, axis, shards: int) -> None:
+    """Sum every gradient over the ranks of ``axis`` in one all-reduce and
+    divide by ``shards``: with each rank's loss the mean over its shard,
+    that is the gradient of the global batch's mean."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if mesh is None or not grads:
+        return
+    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]), axis) / shards
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(cfg: TrainConfig, mesh=None, axis: str = "data"):
     """The training step: forward, loss, backward, Adam update.
 
     ``train_step(state, batch, rng=None, noise=None) -> (state, loss,
     aux)``. The automask tiebreak comes from ``noise`` (standard normal
     draws, shape (sources, N, H, W)) when given, else from the
     ``torch.Generator`` ``rng`` on the model's device, else a constant.
+
+    With ``mesh``, ``batch`` is this rank's shard of the global batch and
+    ``noise`` (or ``rng``'s draws) covers the global batch, of which the
+    rank takes its slice, so that D ranks draw what one process would; the
+    loss and aux values returned are the global batch's.
     """
+    shards = 1 if mesh is None else mesh.axis_size(axis)
+    index = 0 if mesh is None else mesh.axis_index(axis)
 
     def train_step(state: TrainState, batch: dict, rng=None, noise=None):
         model, opt = state.model, state.optimizer
         param = next(model.parameters())
         dev = param.device
         batch = _batch_to_device(batch, param)
+        n = batch["target"].shape[0]
         if noise is None and rng is not None:
             n_src = 3 if cfg.use_stereo else 2
-            noise = torch.randn((n_src,) + batch["target"].shape[:-1], generator=rng,
-                                device=dev)
+            noise = torch.randn((n_src, n * shards) + batch["target"].shape[1:-1],
+                                generator=rng, device=dev)
+        if noise is not None and mesh is not None:
+            noise = noise[:, index * n:(index + 1) * n]
         with fp.ieee_fp32():
             opt.zero_grad(set_to_none=True)
-            loss, aux = _forward_loss(model, batch, cfg, noise)
+            with data_parallel(mesh, axis):
+                loss, aux = _forward_loss(model, batch, cfg, noise)
             loss.backward()
+            sync_gradients(model.parameters(), mesh, axis, shards)
             for group in opt.param_groups:
                 group["lr"] = state.schedule(state.step)
             opt.step()
         state.step += 1
-        return state, loss.detach(), {k: v.detach() for k, v in aux.items()}
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if mesh is not None:
+            keys = list(aux)
+            vals = all_reduce(mesh, torch.stack([loss] + [aux[k] for k in keys]), axis) / shards
+            loss, aux = vals[0], dict(zip(keys, vals[1:]))
+        return state, loss, aux
 
     return train_step
 

@@ -13,6 +13,13 @@ gathers and elementwise interpolation, then compacted on the host.
 Each triangle is flipped where needed so that its normal points along the
 TSDF's gradient (outward: the TSDF is positive in free space).
 `weld_mesh` turns the soup into an indexed mesh.
+
+`marching_tetrahedra_sharded` extracts the surface of an x-sharded grid
+over a mesh axis: each rank owns a contiguous x-slab and needs one (Y, Z)
+plane of the next rank's slab (a `ppermute`) for its last layer of cells;
+it compacts its active cells on the device to a fixed capacity and emits
+their triangles with the same `_emit_triangles`, cells placed by whole
+voxels, so the slabs' triangles are the single-grid path's.
 """
 
 from __future__ import annotations
@@ -76,18 +83,22 @@ _CASE_TABLE = _build_case_table()
 
 
 def _emit_triangles(cells_xyz: torch.Tensor, tsdf: torch.Tensor, origin: torch.Tensor,
-                    res: float, iso: float):
+                    res: float, iso: float, x_offset: int = 0):
     """cells_xyz (A, 3) int64 cell coordinates on the TSDF's device ->
     (verts (A, 6, 2, 3, 3), valid (A, 6, 2)): per cell, tetrahedron and
-    triangle slot, the triangle's vertices and whether the slot holds one."""
+    triangle slot, the triangle's vertices and whether the slot holds one.
+    ``x_offset`` shifts the position of every cell by whole voxels along x
+    (a slab's global first plane): (offset + corner) * res, never
+    offset * res + corner * res, so a slab's vertices are the whole grid's."""
     dev = tsdf.device
     X, Y, Z = tsdf.shape
     flat = tsdf.reshape(-1)
     corners = cells_xyz[:, None, :] + torch.as_tensor(_CORNERS, device=dev)  # (A, 8, 3)
     cidx = (corners[..., 0] * Y + corners[..., 1]) * Z + corners[..., 2]
     vals = flat[cidx.reshape(-1)].reshape(corners.shape[:2])  # (A, 8)
+    placed = corners + torch.tensor([x_offset, 0, 0], device=dev)
     # origin + corner * res, one rounding per coordinate
-    pos = fp.fma(corners.to(torch.float32), torch.full_like(origin, res).expand(corners.shape),
+    pos = fp.fma(placed.to(torch.float32), torch.full_like(origin, res).expand(corners.shape),
                  origin.expand(corners.shape))
     tets = torch.as_tensor(_TETS, device=dev).long()
     tet_vals = vals[:, tets]  # (A, 6, 4)
@@ -170,6 +181,93 @@ def marching_tetrahedra(tsdf, weight=None, origin=(0.0, 0.0, 0.0), res: float = 
         torch.as_tensor(np.asarray(origin, np.float32), device=dev), float(res), float(iso))
     valid[A:] = False
     return verts[valid].cpu().numpy().astype(np.float32)
+
+
+def marching_tetrahedra_sharded(tsdf, weight, origin, res: float, mesh, axis="data",
+                                iso: float = 0.0, cells_per_shard: int = 4096):
+    """This rank's part of the per-slab marching tetrahedra over an
+    x-sharded grid. ``tsdf``/``weight`` (X, Y, Z) are the whole grid, which
+    every rank holds (numpy or tensors; ``weight`` None means all
+    observed); X is padded to a multiple of the ``axis`` size with
+    unobserved planes, and this rank takes its slab of Xl planes to the
+    mesh's device.
+
+    The slab's last cell layer needs the first plane of the next rank's
+    slab: one (Y, Z) plane of the TSDF and of the weights, passed around
+    the ring; the last rank's wrap-around plane (the first rank's) and the
+    padded planes are masked (global cell x < X - 1). Active cells are
+    compacted on the device to ``cells_per_shard`` slots.
+
+    Returns (verts (cap, 6, 2, 3, 3), valid (cap, 6, 2), n_active) for
+    this rank, as numpy and an int; callers check n_active <= cap and
+    re-run with a larger cap (`marching_tetrahedra_sharded_soup`).
+    """
+    from tpu3drec_torch.parallel.mesh import ppermute
+
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    dev = mesh.device
+    tsdf_t = torch.as_tensor(tsdf, dtype=torch.float32)
+    w_t = (torch.as_tensor(weight, dtype=torch.float32) if weight is not None
+           else torch.ones_like(tsdf_t))
+    X, Y, Z = tsdf_t.shape
+    Xl = -(-X // n)
+    lo, hi = min(idx * Xl, X), min((idx + 1) * Xl, X)
+    t_l = torch.ones((Xl, Y, Z), dtype=torch.float32, device=dev)
+    w_l = torch.zeros((Xl, Y, Z), dtype=torch.float32, device=dev)
+    t_l[:hi - lo] = tsdf_t[lo:hi].to(dev)
+    w_l[:hi - lo] = w_t[lo:hi].to(dev)
+
+    halo = ppermute(mesh, torch.stack([t_l[0], w_l[0]]), axis, shift=-1)  # next rank's plane
+    t_ext = torch.cat([t_l, halo[:1]])  # (Xl + 1, Y, Z)
+    w_ext = torch.cat([w_l, halo[1:]])
+
+    def cell(a, reduce):
+        return reduce(reduce(reduce(a[:-1, :-1, :-1], a[1:, :-1, :-1]),
+                             reduce(a[1:, 1:, :-1], a[:-1, 1:, :-1])),
+                      reduce(reduce(a[:-1, :-1, 1:], a[1:, :-1, 1:]),
+                             reduce(a[1:, 1:, 1:], a[:-1, 1:, 1:])))
+
+    inside = t_ext < iso
+    active = (cell(inside, torch.logical_or) & ~cell(inside, torch.logical_and)
+              & cell(w_ext > 0, torch.logical_and))
+    gx = idx * Xl + torch.arange(Xl, device=dev)
+    active &= (gx < X - 1)[:, None, None]
+    flat_idx = torch.nonzero(active.reshape(-1))[:, 0]
+    n_active = int(flat_idx.shape[0])
+    cap = cells_per_shard
+    ok = torch.zeros(cap, dtype=torch.bool, device=dev)
+    ok[:min(n_active, cap)] = True
+    safe = torch.zeros(cap, dtype=torch.int64, device=dev)
+    safe[:min(n_active, cap)] = flat_idx[:cap]
+    cy = (Y - 1) * (Z - 1)
+    cells = torch.stack([safe // cy, (safe % cy) // (Z - 1), safe % (Z - 1)], dim=1)
+    verts, valid = _emit_triangles(
+        cells, t_ext, torch.as_tensor(np.asarray(origin, np.float32), device=dev),
+        float(res), float(iso), x_offset=idx * Xl)
+    valid &= ok[:, None, None]
+    return verts.cpu().numpy(), valid.cpu().numpy(), n_active
+
+
+def marching_tetrahedra_sharded_soup(tsdf, weight, origin, res: float, mesh, axis="data",
+                                     iso: float = 0.0, cells_per_shard: int = 4096) -> np.ndarray:
+    """Sharded extraction -> the whole (T, 3, 3) triangle soup on every
+    rank, in the single-grid path's order (slabs in x order). The capacity
+    doubles while any rank overflows it: the test reads the all-reduced
+    largest ``n_active``, so every rank takes the same branch."""
+    from tpu3drec_torch.parallel.mesh import all_gather, all_reduce
+
+    cap = cells_per_shard
+    while True:
+        verts, valid, n_active = marching_tetrahedra_sharded(
+            tsdf, weight, origin, res, mesh, axis=axis, iso=iso, cells_per_shard=cap)
+        worst = all_reduce(mesh, torch.tensor([n_active], device=mesh.device), axis, "max")
+        if int(worst[0]) <= cap:
+            v = all_gather(mesh, torch.as_tensor(verts, device=mesh.device), axis)
+            ok = all_gather(mesh, torch.as_tensor(valid, device=mesh.device).to(torch.uint8),
+                            axis)
+            return v[ok.bool()].cpu().numpy().astype(np.float32)
+        cap *= 2
 
 
 def weld_mesh(tri_soup: np.ndarray, tol: float = 1e-5):

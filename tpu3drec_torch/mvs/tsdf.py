@@ -12,6 +12,12 @@ extracted by `mvs/marching.py`.
 Voxel centres are origin + i * res with one rounding (`core/fp.py::fma`),
 as XLA's CPU compiler contracts it, so that a voxel projects to the same
 pixel as in the JAX package.
+
+The grid's x axis shards over a mesh axis (`shard_grid`): each rank holds
+and integrates the x-slab it owns, with no communication. A slab keeps
+the global index of its first plane (``x0``) and computes its voxel
+centres from global indices and the grid's one origin, so every slab
+equals the whole grid's slice bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ class TsdfGrid:
     trunc: float                # truncation band [m]
     tsdf: torch.Tensor          # init +1 (empty)
     weight: torch.Tensor        # init 0
+    x0: int = 0                 # global x index of the first plane (a slab's)
 
     @staticmethod
     def allocate(origin, dims, res: float, trunc: float | None = None, device=None):
@@ -65,7 +72,8 @@ def _axes(grid: TsdfGrid):
     res = torch.tensor(grid.res, dtype=torch.float32, device=dev)
     out = []
     for k, n in enumerate((X, Y, Z)):
-        i = torch.arange(n, dtype=torch.float32, device=dev)
+        start = grid.x0 if k == 0 else 0
+        i = torch.arange(start, start + n, dtype=torch.float32, device=dev)
         c = fp.fma(i, res.expand(n), torch.tensor(float(grid.origin[k]), dtype=torch.float32,
                                                   device=dev).expand(n))
         shape = [1, 1, 1]
@@ -120,4 +128,18 @@ def integrate_depth_maps(grid: TsdfGrid, depths, K, Rs, ts, masks=None) -> TsdfG
     tsdf, weight = grid.tsdf, grid.weight
     for f in range(depths.shape[0]):
         tsdf, weight = _integrate(tsdf, weight, centers, depths[f], K, Rs[f], ts[f], grid.trunc)
-    return TsdfGrid(grid.origin, grid.res, grid.trunc, tsdf, weight)
+    return TsdfGrid(grid.origin, grid.res, grid.trunc, tsdf, weight, grid.x0)
+
+
+def shard_grid(grid: TsdfGrid, mesh, axis="data") -> TsdfGrid:
+    """This rank's x-slab of ``grid`` on the mesh's device: planes
+    [x0, x0 + ceil(X / n)) of the X, clipped at X, for rank x0 / ceil(X / n)
+    of the n along ``axis``."""
+    n = mesh.axis_size(axis)
+    X = grid.tsdf.shape[0]
+    xl = -(-X // n)
+    x0 = min(mesh.axis_index(axis) * xl, X)
+    x1 = min(x0 + xl, X)
+    return TsdfGrid(grid.origin, grid.res, grid.trunc,
+                    grid.tsdf[x0:x1].to(mesh.device), grid.weight[x0:x1].to(mesh.device),
+                    grid.x0 + x0)

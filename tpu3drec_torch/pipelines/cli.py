@@ -17,7 +17,11 @@ the map-building subcommands), with the same flags and defaults:
   mission-sim closed-loop autonomous mission in a simulated world
 
 Run: ``python -m tpu3drec_torch.pipelines.cli <subcommand> ...``. Work runs
-on the card; ``--device cpu`` asks for the CPU.
+on the card; ``--device cpu`` asks for the CPU. Multi-process: every
+process runs the same command with ``--coordinator host:port
+--num-processes N --process-id I`` (or ``--distributed`` alone under
+torchrun), which joins the process group (`parallel/multihost.py`) before
+the subcommand runs; the sharded writers emit one artifact set.
 """
 
 from __future__ import annotations
@@ -383,6 +387,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu3drec_torch")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; pass cpu for the CPU)")
+    # multi-process runtime: every process runs the same command
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group (torchrun's environment, or the flags below)")
+    p.add_argument("--coordinator", default=None, help="host:port of process 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     q = sub.add_parser("rgbd", help="depth + poses -> fused map")
@@ -516,6 +526,10 @@ def main(argv=None):
     q.set_defaults(fn=_cmd_mission_sim)
 
     args = p.parse_args(argv)
+    if args.distributed or args.coordinator:
+        from tpu3drec_torch.parallel.multihost import init_distributed
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id)
     return args.fn(args)
 
 

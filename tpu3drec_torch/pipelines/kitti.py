@@ -10,11 +10,14 @@ and a global bundle adjustment (`sfm/global_refine.py`) refine the whole.
 Every device call runs on ``device`` (None means the card); the stitching
 logic is host numpy, as in the reference.
 
-Not ported yet: the reference's multi-process window split
-(`_allgather_window_locals`, the `process_slice` of the windows and the
-allgather of their poses), which waits for the port of `parallel/`.
-``parallel_windows`` > 1 reconstructs windows concurrently in threads on
-the one device, each with its own generators, as the sequential run does.
+Multi-process: when the process group holds more than one process
+(`parallel/multihost.py`), each process reconstructs its `process_slice`
+of the windows; the window pose dicts are packed into fixed shapes (float32
+poses, as the reference packs them), gathered, and every process runs the
+same stitching, loop closure and refinement. ``parallel_windows`` > 1
+reconstructs a process's windows concurrently in threads on its one
+device. Each window's generators come from ``cfg.seed + widx``, so a
+window reconstructs the same whichever process or thread owns it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from tpu3drec_torch.core import fp
 from tpu3drec_torch.core.se3 import axis_angle_to_matrix, matrix_to_axis_angle
+from tpu3drec_torch.parallel.multihost import process_allgather, process_count, process_slice
 from tpu3drec_torch.sfm.features import Keypoints, detect_and_describe
 from tpu3drec_torch.sfm.incremental import run_sfm
 from tpu3drec_torch.sfm.posegraph import (
@@ -141,6 +145,43 @@ def _detect_sequence(images: np.ndarray, max_keypoints: int, chunk: int = 16, de
     return kps, descs
 
 
+def _allgather_window_locals(window_locals, my_windows, window_size):
+    """Exchange per-window pose dicts across processes: pack each process's
+    windows into fixed-shape arrays (-1-padded, poses as float32, as the
+    reference packs them), gather, and unpack into the global window order.
+    A tiny payload (frames x 4x4 per window): the reconstructions never
+    leave their process."""
+    n_windows = len(window_locals)
+    # every process packs the same wmax (the gather needs one shape)
+    wmax = -(-n_windows // process_count())
+    widx = np.full(wmax, -1, np.int32)
+    fids = np.full((wmax, window_size), -1, np.int32)
+    mats = np.zeros((wmax, window_size, 4, 4), np.float32)
+    for row, w in enumerate(my_windows):
+        local = window_locals[w]
+        if local is None:
+            continue
+        widx[row] = w
+        for col, (f, T) in enumerate(sorted(local.items())):
+            fids[row, col] = f
+            mats[row, col] = T
+    g_widx, g_fids, g_mats = (process_allgather(a) for a in (widx, fids, mats))
+    out = [None] * n_windows
+    for pi in range(g_widx.shape[0]):
+        for row in range(wmax):
+            w = int(g_widx[pi, row])
+            if w < 0:
+                continue
+            local = {}
+            for col in range(window_size):
+                f = int(g_fids[pi, row, col])
+                if f >= 0:
+                    local[f] = np.asarray(g_mats[pi, row, col], np.float64)
+            if local:
+                out[w] = local
+    return out
+
+
 def run_windowed_sfm(
     images: np.ndarray,   # (F, H, W) grayscale float [0,1]
     K: np.ndarray,
@@ -209,6 +250,12 @@ def run_windowed_sfm(
                 print(f"[kitti] window at {start} failed: {e}")
             return None
 
+    # window-sharded multi-process SfM: each process reconstructs its
+    # contiguous slice of windows (all of them in one process); the
+    # per-window pose dicts (tiny) are exchanged so every process runs the
+    # identical stitch. `recs` holds only this process's reconstructions.
+    my_windows = range(*process_slice(len(starts)).indices(len(starts)))
+    window_recs = [None] * len(starts)
     if cfg.parallel_windows > 1:
         # windows in threads on the one device: PyTorch releases the GIL in
         # its ops, so the host work of different windows interleaves. One
@@ -217,18 +264,23 @@ def run_windowed_sfm(
         import concurrent.futures as cf
 
         with fp.ieee_fp32(), cf.ThreadPoolExecutor(cfg.parallel_windows) as ex:
-            window_recs = list(ex.map(_reconstruct, range(len(starts))))
+            for w, rec in zip(my_windows, ex.map(_reconstruct, my_windows)):
+                window_recs[w] = rec
     else:
-        window_recs = [_reconstruct(w) for w in range(len(starts))]
+        for w in my_windows:
+            window_recs[w] = _reconstruct(w)
     lap("windows")
 
     window_locals = [None] * len(starts)
-    for widx, rec in enumerate(window_recs):
+    for widx in my_windows:
+        rec = window_recs[widx]
         if rec is None:
             continue
         recs.append(rec)
         local = _poses_to_T(rec, rec.registered_frames())
         window_locals[widx] = {starts[widx] + f: T for f, T in local.items()}
+    if process_count() > 1:
+        window_locals = _allgather_window_locals(window_locals, list(my_windows), cfg.window)
 
     # order-dependent stitching pass (cheap host math)
     for widx, local in enumerate(window_locals):

@@ -1,11 +1,18 @@
 """RGBD mapping pipeline, reference configuration 1 (port of
-`tpu3drec/pipelines/rgbd.py`, single process).
+`tpu3drec/pipelines/rgbd.py`).
 
 Depth PNGs + given (COLMAP-convention) poses -> fused world-frame point
 cloud -> PLY (+ optional .bt octree). The host decodes depth PNGs into one
 (F, H, W) stack; the device unprojects every frame and voxel-dedups the
 points for the octree; the host writes PLY/.bt. The only host<->device
 transfers are the input stack (down) and the final point/key buffers (up).
+
+Multi-process (`parallel/multihost.py`, the CLI's ``--coordinator``): each
+process decodes and fuses only its contiguous slice of the frames, and the
+sharded writers merge the processes' parts into the single PLY and `.bt`.
+As in the reference, ``map.max_points`` cuts each process's own cloud, so
+an N-process PLY can hold up to N times ``max_points`` points, and process
+0's ``n_voxels`` is the node count of the merged `.bt`.
 """
 
 from __future__ import annotations
@@ -19,12 +26,12 @@ import torch
 
 from tpu3drec_torch.core.quaternion import quat_xyzw_to_matrix
 from tpu3drec_torch.core.unproject import fuse_depth_maps
-from tpu3drec_torch.mapping.btio import write_bt
 from tpu3drec_torch.mapping.voxel import unique_voxels, voxelize
+from tpu3drec_torch.parallel.multihost import (
+    is_distributed, process_slice, write_bt_sharded, write_ply_sharded)
 from tpu3drec_torch.utils.config import RGBDPipelineConfig
 from tpu3drec_torch.utils.depthio import load_depth_stack, load_image_rgb
 from tpu3drec_torch.utils.device import resolve_device
-from tpu3drec_torch.utils.plyio import write_ply
 from tpu3drec_torch.utils.poseio import poses_to_arrays, read_pose_txt
 
 
@@ -63,6 +70,7 @@ def run(cfg: RGBDPipelineConfig, device=None) -> RGBDResult:
     """Execute the pipeline from on-disk inputs, per the reference contract."""
     t0 = time.time()
     records = read_pose_txt(cfg.pose_file)
+    records = records[process_slice(len(records))]  # all of them in one process
     size = (cfg.camera.width, cfg.camera.height)
     depth_paths = [os.path.join(cfg.depth_dir, r.image_name) for r in records]
     depths = load_depth_stack(depth_paths, mode=cfg.depth.mode,
@@ -102,7 +110,9 @@ def run_arrays(
     if cfg.out_bt:
         skeys, mask, count = unique_voxels(voxelize(pts, cfg.map.voxel_res), valid)
         n_voxels = int(count)
-        write_bt(cfg.out_bt, skeys[mask].cpu().numpy(), cfg.map.voxel_res)
+        n = write_bt_sharded(cfg.out_bt, skeys[mask].cpu().numpy(), cfg.map.voxel_res)
+        if is_distributed() and n >= 0:
+            n_voxels = n  # process 0: the merged tree's node count
 
     valid_h = valid.cpu().numpy()
     cloud = pts[valid].cpu().numpy()
@@ -114,7 +124,7 @@ def run_arrays(
         if cloud_rgb is not None:
             cloud_rgb = cloud_rgb[: cfg.map.max_points]
     if cfg.out_ply:
-        write_ply(cfg.out_ply, cloud, colors=cloud_rgb, binary=cfg.map.ply_binary)
+        write_ply_sharded(cfg.out_ply, cloud, colors=cloud_rgb, binary=cfg.map.ply_binary)
 
     return RGBDResult(
         n_frames=int(depths.shape[0]),
