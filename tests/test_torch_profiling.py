@@ -1,7 +1,7 @@
 """Parity of the port's `utils/profiling.py` with the JAX package's
 `tpu3drec/utils/profiling.py`: `roofline` on the same numbers and chip
 equal field for field (exact: the same float arithmetic), the H100's
-published peaks, and the timers and trace on the CPU.
+published peaks, and the trace on the CPU.
 """
 
 import dataclasses
@@ -42,17 +42,6 @@ def test_h100_is_the_published_sheet_and_the_default():
     # the ICP-NN kernel's bound at 76,800 x 76,800 (PERF.md section 6): 0.792 ms
     r = tprof.roofline(1.0, *CASES[0][1:3])
     assert r.compute_bound and abs(r.fraction_of_peak * 1e3 - 0.7923) < 1e-4
-
-
-def test_timers_and_chain_scalar_on_the_cpu():
-    x0 = torch.ones(64)
-    s = tprof.time_chained(lambda x: x * 1.0001, x0, iters=5, warmup=1)
-    assert 0 < s < 1
-    slope = tprof.time_device_loop(lambda i, c: c + i, lambda salt: torch.full((8,), salt),
-                                   iters=(2, 6), reps=2)
-    assert 0 < slope < 1
-    z = tprof.chain_scalar({"a": torch.ones(3), "b": [torch.zeros(2), (torch.ones(1),)]})
-    assert z.shape == () and float(z) == 0.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -6,7 +6,7 @@
   nothing else of the repo, it exits non-zero and prints no result.
 * Neither the port (its Python, CUDA and C++ sources), the script nor the
   port's tools (`tools/ate_torch.py`, `train_convergence_torch.py`,
-  `trace_monocular.py`, `twin_runs_torch.py`, `grad_accuracy_torch.py`,
+  `twin_runs_torch.py`, `grad_accuracy_torch.py`,
   `stereo_convergence_torch.py`, `trace_stereo_mvs.py`,
   `dryrun_multichip_torch.py`) imports JAX, flax, optax, orbax, the
   JAX package, PIL or cv2 at module level, or `torch.utils.cpp_extension`.
@@ -120,7 +120,6 @@ _FORBIDDEN = [
 def _sources():
     out = [SMOKE, os.path.join(ROOT, "tools", "ate_torch.py"),
            os.path.join(ROOT, "tools", "train_convergence_torch.py"),
-           os.path.join(ROOT, "tools", "trace_monocular.py"),
            os.path.join(ROOT, "tools", "twin_runs_torch.py"),
            os.path.join(ROOT, "tools", "grad_accuracy_torch.py"),
            os.path.join(ROOT, "tools", "stereo_convergence_torch.py"),

@@ -2,10 +2,9 @@
 
     python3 tools/trace_stereo_mvs.py
 
-On random inputs from seed 0, times and traces with torch.profiler (as
-`tools/trace_monocular.py` does, whose `trace` it uses): a PSMNet train
-step at StereoTrainConfig's published size (256x512, batch 4, max_disp 64,
-feat_ch 32) in float32 (IEEE, no TF32) and in bfloat16, eval-mode
+On random inputs from seed 0, times and traces with torch.profiler: a
+PSMNet train step at StereoTrainConfig's published size (256x512, batch 4,
+max_disp 64, feat_ch 32) in float32 (IEEE, no TF32) and in bfloat16, eval-mode
 disparity of a batch of 4 pairs at 480x640, and one view's plane sweep at
 480x640 (96 planes, 4 sources, window 5). For each: the wall time per
 call, the device time of its kernels and their share of the wall, the
@@ -23,9 +22,6 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-from trace_monocular import trace  # noqa: E402
 
 from tpu3drec_torch.models.psmnet import stereo_infer  # noqa: E402
 from tpu3drec_torch.models.psmnet_training import (  # noqa: E402
@@ -33,6 +29,40 @@ from tpu3drec_torch.models.psmnet_training import (  # noqa: E402
 from tpu3drec_torch.mvs.plane_sweep import plane_sweep_depth  # noqa: E402
 
 SEED = 0
+# kernel-name fragments of cuDNN / CUTLASS convolution and GEMM kernels
+CONV_KERNELS = ("conv", "gemm", "sm90_xmma", "implicit", "wgrad", "dgrad", "cutlass", "nchw",
+                "nhwc")
+
+
+def trace(label: str, fn, reps: int = 5, warm: int = 3) -> dict:
+    """Wall ms a call (CUDA events over ``reps`` warm calls), then a
+    profiled run of ``reps`` calls: device ms, busy share, launches and the
+    convolutions' share a call; prints them and the top device ops."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    wall_ms = start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    conv_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if any(k in e.name.lower() for k in CONV_KERNELS)) / 1e3 / reps
+    out = {"label": label, "wall_ms": wall_ms, "device_ms": device_ms,
+           "device_busy": device_ms / wall_ms, "launches": len(kernels) / reps,
+           "conv_ms": conv_ms, "conv_share": conv_ms / max(device_ms, 1e-9)}
+    print(out, flush=True)
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    return out
 
 
 def main() -> int:

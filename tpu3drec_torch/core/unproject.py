@@ -14,6 +14,7 @@ from tpu3drec_torch.core.camera import PinholeCamera
 from tpu3drec_torch.core.fp import fma
 from tpu3drec_torch.core.se3 import SE3
 from tpu3drec_torch.utils.device import as_f32, resolve_device
+from tpu3drec_torch.utils.tracing import count, span
 
 
 def _pixel_grid(height: int, width: int, dtype, device):
@@ -99,19 +100,31 @@ def fuse_depth_maps(
     -> (F*H*W, 3) world points + (F*H*W,) validity mask, on ``device``.
 
     Points with depth outside the open interval (min_depth, max_depth) are
-    masked; the defaults keep every point, as the reference did."""
+    masked; the defaults keep every point, as the reference did. Spans
+    ``map.to_device`` (the inputs' copies, counter ``bytes_to_device``) and
+    ``map.fuse`` (`utils/tracing.py`)."""
     dev = resolve_device(device)
-    depths = as_f32(depths, dev)
-    Rs = as_f32(Rs, dev)
-    ts = as_f32(ts, dev)
-    F, H, W = depths.shape
-    fx, fy, cx, cy = (as_f32(v, dev) for v in (fx, fy, cx, cy))
-    u, v = _pixel_grid(H, W, torch.float32, dev)
-    X = (u - cx) / fx * depths
-    Y = (v - cy) / fy * depths
-    # per-frame pose entries broadcast over (H, W)
-    R = [[Rs[:, i, j, None, None] for j in range(3)] for i in range(3)]
-    t = [ts[:, i, None, None] for i in range(3)]
-    pts = _rotate_translate(R, t, X, Y, depths)  # (F, H, W, 3)
-    valid = (depths > min_depth) & (depths < max_depth)
-    return pts.reshape(-1, 3), valid.reshape(-1)
+    with span("map.to_device"):
+        depths, Rs, ts, fx, fy, cx, cy = (_to_device(x, dev)
+                                          for x in (depths, Rs, ts, fx, fy, cx, cy))
+    with span("map.fuse"):
+        F, H, W = depths.shape
+        u, v = _pixel_grid(H, W, torch.float32, dev)
+        X = (u - cx) / fx * depths
+        Y = (v - cy) / fy * depths
+        # per-frame pose entries broadcast over (H, W)
+        R = [[Rs[:, i, j, None, None] for j in range(3)] for i in range(3)]
+        t = [ts[:, i, None, None] for i in range(3)]
+        pts = _rotate_translate(R, t, X, Y, depths)  # (F, H, W, 3)
+        valid = (depths > min_depth) & (depths < max_depth)
+        return pts.reshape(-1, 3), valid.reshape(-1)
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    """`as_f32`, counting the bytes of what came from the host (an array,
+    a number or a tensor on another kind of device; counted on the CPU
+    too, so that the count does not depend on the device)."""
+    out = as_f32(x, dev)
+    if not isinstance(x, torch.Tensor) or x.device.type != dev.type:
+        count("bytes_to_device", out.nbytes)
+    return out

@@ -18,6 +18,12 @@ takes the same Adam update. ``compute_dtype="float32"`` is IEEE float32
 on the card too (`core/fp.py::ieee_fp32`, no TF32), so the card agrees with
 a CPU run of the same code; ``"bfloat16"`` runs the nets under bf16
 autocast, and the loss in float32 either way.
+
+Program spans (`utils/tracing.py`) of a step: the root ``train.step``;
+``train.forward`` (the nets), ``train.loss`` (the rest of the loss),
+``train.backward`` (autograd and the gradients' all-reduce) and
+``train.optimizer`` (twice: the gradients' reset, then the learning rate
+and Adam's update).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from tpu3drec_torch.models.monodepth import (
 from tpu3drec_torch.models.resnet import global_batch
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
+from tpu3drec_torch.utils.tracing import span
 
 
 @dataclass
@@ -147,39 +154,40 @@ def _forward_loss(model: MonodepthModel, batch: dict, cfg: TrainConfig, noise=No
     for the automask tiebreak (times 1e-5), or None for a constant.
     """
     target, prev, nxt = batch["target"], batch["prev"], batch["next"]
-    with autocast(cfg, target.device):
+    with autocast(cfg, target.device), span("train.forward"):
         disps, pose_prev, pose_next = model.forward_train(
             target, prev, nxt, with_pose=not cfg.use_gt_pose)
-    # loss math in (at least) f32 regardless of the nets' compute dtype
-    f32 = lambda x: x.to(torch.promote_types(x.dtype, torch.float32))  # noqa: E731
-    disps = {k: f32(v) for k, v in disps.items()}
+    with span("train.loss"):
+        # loss math in (at least) f32 regardless of the nets' compute dtype
+        f32 = lambda x: x.to(torch.promote_types(x.dtype, torch.float32))  # noqa: E731
+        disps = {k: f32(v) for k, v in disps.items()}
 
-    if cfg.use_gt_pose:
-        # the GT path: no inversion, rows [prev, next]
-        T_prev = transformation_from_parameters(batch["gt_axisangle"][:, 0],
-                                                batch["gt_translation"][:, 0])
-        T_next = transformation_from_parameters(batch["gt_axisangle"][:, 1],
-                                                batch["gt_translation"][:, 1])
-    else:
-        # invert for the negative frame id
-        T_prev = transformation_from_parameters(*map(f32, pose_prev), invert=True)
-        T_next = transformation_from_parameters(*map(f32, pose_next), invert=False)
+        if cfg.use_gt_pose:
+            # the GT path: no inversion, rows [prev, next]
+            T_prev = transformation_from_parameters(batch["gt_axisangle"][:, 0],
+                                                    batch["gt_translation"][:, 0])
+            T_next = transformation_from_parameters(batch["gt_axisangle"][:, 1],
+                                                    batch["gt_translation"][:, 1])
+        else:
+            # invert for the negative frame id
+            T_prev = transformation_from_parameters(*map(f32, pose_prev), invert=True)
+            T_next = transformation_from_parameters(*map(f32, pose_next), invert=False)
 
-    frame_Ts = [T_prev, T_next]
-    sources = [prev, nxt]
-    if cfg.use_stereo:
-        # constant stereo transform: identity R, the baseline along x with
-        # the sample's flip sign; the pose net never sees the stereo frame
-        N = target.shape[0]
-        T_s = torch.eye(4, dtype=target.dtype, device=target.device).repeat(N, 1, 1)
-        T_s[:, 0, 3] = batch["stereo_sign"].to(target.dtype) * cfg.stereo_baseline
-        frame_Ts.append(T_s)
-        sources.append(batch["stereo"])
+        frame_Ts = [T_prev, T_next]
+        sources = [prev, nxt]
+        if cfg.use_stereo:
+            # constant stereo transform: identity R, the baseline along x with
+            # the sample's flip sign; the pose net never sees the stereo frame
+            N = target.shape[0]
+            T_s = torch.eye(4, dtype=target.dtype, device=target.device).repeat(N, 1, 1)
+            T_s[:, 0, 3] = batch["stereo_sign"].to(target.dtype) * cfg.stereo_baseline
+            frame_Ts.append(T_s)
+            sources.append(batch["stereo"])
 
-    ident = None
-    if noise is not None:
-        ident = torch.as_tensor(noise, dtype=target.dtype, device=target.device) * 1e-5
-    return monodepth_loss(disps, frame_Ts, target, sources, cfg.loss, identity_noise=ident)
+        ident = None
+        if noise is not None:
+            ident = torch.as_tensor(noise, dtype=target.dtype, device=target.device) * 1e-5
+        return monodepth_loss(disps, frame_Ts, target, sources, cfg.loss, identity_noise=ident)
 
 
 def _batch_to_device(batch: dict, like: torch.Tensor) -> dict:
@@ -224,6 +232,10 @@ def make_train_step(cfg: TrainConfig, mesh=None, axis: str = "data"):
     index = 0 if mesh is None else mesh.axis_index(axis)
 
     def train_step(state: TrainState, batch: dict, rng=None, noise=None):
+        with span("train.step"):
+            return step(state, batch, rng, noise)
+
+    def step(state, batch, rng, noise):
         model, opt = state.model, state.optimizer
         param = next(model.parameters())
         dev = param.device
@@ -236,14 +248,17 @@ def make_train_step(cfg: TrainConfig, mesh=None, axis: str = "data"):
         if noise is not None and mesh is not None:
             noise = noise[:, index * n:(index + 1) * n]
         with fp.ieee_fp32():
-            opt.zero_grad(set_to_none=True)
+            with span("train.optimizer"):
+                opt.zero_grad(set_to_none=True)
             with data_parallel(mesh, axis):
                 loss, aux = _forward_loss(model, batch, cfg, noise)
-            loss.backward()
-            sync_gradients(model.parameters(), mesh, axis, shards)
-            for group in opt.param_groups:
-                group["lr"] = state.schedule(state.step)
-            opt.step()
+            with span("train.backward"):
+                loss.backward()
+                sync_gradients(model.parameters(), mesh, axis, shards)
+            with span("train.optimizer"):
+                for group in opt.param_groups:
+                    group["lr"] = state.schedule(state.step)
+                opt.step()
         state.step += 1
         loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
         if mesh is not None:

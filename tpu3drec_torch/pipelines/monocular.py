@@ -27,6 +27,7 @@ from tpu3drec_torch.models.training import (
 from tpu3drec_torch.utils.checkpoint import CheckpointManager
 from tpu3drec_torch.utils.device import resolve_device
 from tpu3drec_torch.utils.metrics_logger import MetricsLogger, ThroughputMeter
+from tpu3drec_torch.utils.tracing import count, span
 
 
 @dataclass
@@ -102,17 +103,32 @@ def infer_depth_maps(model, images: np.ndarray, cfg: TrainConfig, batch: int = 8
     """RGB (F, H, W, 3) uint8 or float in [0, 1] -> depth (F, cfg.height,
     cfg.width) float32, in chunks of ``batch`` frames on the model's
     device; the last chunk is padded with zero frames to the full batch
-    (the batch statistics are not used, so padding changes no frame)."""
-    eval_fn = make_eval_depth(model, cfg)
-    dev = next(model.parameters()).device
-    if images.dtype == np.uint8:
-        images = images.astype(np.float32) / 255.0
-    out = []
-    for i in range(0, images.shape[0], batch):
-        chunk = images[i: i + batch]
-        pad = batch - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-        d = eval_fn(torch.as_tensor(chunk, dtype=torch.float32, device=dev)).cpu().numpy()
-        out.append(d[: batch - pad])
-    return np.concatenate(out, axis=0)
+    (the batch statistics are not used, so padding changes no frame).
+
+    Program spans (`utils/tracing.py`): the root ``infer.depth``;
+    ``infer.to_device`` (the conversion to float32 on the host, then each
+    chunk's copy, counter ``bytes_to_device``), ``infer.net`` and
+    ``infer.to_host`` (counter ``bytes_to_host``), a chunk each."""
+    with span("infer.depth"):
+        eval_fn = make_eval_depth(model, cfg)
+        dev = next(model.parameters()).device
+        if images.dtype == np.uint8:
+            with span("infer.to_device"):
+                images = images.astype(np.float32) / 255.0
+        out = []
+        for i in range(0, images.shape[0], batch):
+            with span("infer.to_device"):
+                chunk = images[i: i + batch]
+                pad = batch - chunk.shape[0]
+                if pad:
+                    chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:],
+                                                            chunk.dtype)])
+                x = torch.as_tensor(chunk, dtype=torch.float32, device=dev)
+                count("bytes_to_device", x.nbytes)
+            with span("infer.net"):
+                d = eval_fn(x)
+            with span("infer.to_host"):
+                d = d.cpu().numpy()
+                count("bytes_to_host", d.nbytes)
+            out.append(d[: batch - pad])
+        return np.concatenate(out, axis=0)

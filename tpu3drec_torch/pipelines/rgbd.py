@@ -13,6 +13,11 @@ sharded writers merge the processes' parts into the single PLY and `.bt`.
 As in the reference, ``map.max_points`` cuts each process's own cloud, so
 an N-process PLY can hold up to N times ``max_points`` points, and process
 0's ``n_voxels`` is the node count of the merged `.bt`.
+
+Program spans (`utils/tracing.py`) of `run_arrays`: the root ``map.job``;
+``map.to_device`` and ``map.fuse`` (`core/unproject.py`); ``map.voxel``;
+``map.to_host``, the copies back, with the counter ``bytes_to_host``; and
+``map.write_bt``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from tpu3drec_torch.utils.config import RGBDPipelineConfig
 from tpu3drec_torch.utils.depthio import load_depth_stack, load_image_rgb
 from tpu3drec_torch.utils.device import resolve_device
 from tpu3drec_torch.utils.poseio import poses_to_arrays, read_pose_txt
+from tpu3drec_torch.utils.tracing import count, span
 
 
 @dataclass
@@ -102,20 +108,39 @@ def run_arrays(
     device=None,
 ) -> RGBDResult:
     """Pipeline on in-memory arrays (the testable core)."""
+    with span("map.job"):
+        return _run_arrays(depths, q_xyzw, t, cfg, keep_points, colors, device)
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host array, its bytes counted (on the CPU too,
+    so that the count does not depend on the device)."""
+    out = x.cpu().numpy()
+    count("bytes_to_host", out.nbytes)
+    return out
+
+
+def _run_arrays(depths, q_xyzw, t, cfg, keep_points, colors, device) -> RGBDResult:
     t0 = time.time()
     dev = resolve_device(device)
     pts, valid = fuse_arrays(depths, q_xyzw, t, cfg, device=dev)
 
     n_voxels = 0
     if cfg.out_bt:
-        skeys, mask, count = unique_voxels(voxelize(pts, cfg.map.voxel_res), valid)
-        n_voxels = int(count)
-        n = write_bt_sharded(cfg.out_bt, skeys[mask].cpu().numpy(), cfg.map.voxel_res)
+        with span("map.voxel"):
+            skeys, mask, n_unique = unique_voxels(voxelize(pts, cfg.map.voxel_res), valid)
+        with span("map.to_host"):
+            n_voxels = int(n_unique)
+            count("bytes_to_host", n_unique.element_size())
+            keys = _to_host(skeys[mask])
+        with span("map.write_bt"):
+            n = write_bt_sharded(cfg.out_bt, keys, cfg.map.voxel_res)
         if is_distributed() and n >= 0:
             n_voxels = n  # process 0: the merged tree's node count
 
-    valid_h = valid.cpu().numpy()
-    cloud = pts[valid].cpu().numpy()
+    with span("map.to_host"):
+        valid_h = _to_host(valid)
+        cloud = _to_host(pts[valid])
     cloud_rgb = None
     if colors is not None:
         cloud_rgb = colors.reshape(-1, 3)[valid_h]

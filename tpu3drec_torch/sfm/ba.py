@@ -26,6 +26,10 @@ observations with the whole of the cameras and landmarks. Every segment
 sum, the costs and the weight total are all-reduced over the axis, so the
 camera and landmark systems, the CG vectors and their dot products are the
 same on every rank, and the stop test is read from an all-reduced flag.
+
+Tracing (`utils/tracing.py`): the span ``ba.solve`` around the LM loop
+and its counter ``ba.lm_iters``. The PCG loop has no early exit, so it
+runs ``cg_iters`` times an LM iteration and has no counter of its own.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from tpu3drec_torch.core.se3 import axis_angle_to_matrix, matrix_to_axis_angle
 from tpu3drec_torch.ops.ba_blocks import ba_blocks, intrinsics_of
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import FORWARD_AD_LOCK, resolve_device
+from tpu3drec_torch.utils.tracing import count, span
 
 
 class BAProblem(NamedTuple):
@@ -274,7 +279,7 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
                 | (~accept & (lam >= 1e6)))
         return cam_params, points, lam, cost_out, stop
 
-    with fp.ieee_fp32():
+    with fp.ieee_fp32(), span("ba.solve"):
         init_cost = cost_of(p.cam_params, p.points)
         cams, pts, cost = p.cam_params, p.points, init_cost
         lam = torch.as_tensor(init_lambda, dtype=dt, device=dev)
@@ -285,5 +290,6 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
             it += 1
             if bool(stop) if mesh is None else bool(red(stop.to(torch.int32).reshape(1), "max")):
                 break
+        count("ba.lm_iters", it)
     return BAResult(cam_params=cams, points=pts, initial_cost=init_cost, final_cost=cost,
                     n_iters=it)

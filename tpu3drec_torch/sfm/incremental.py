@@ -10,7 +10,13 @@ host union-find over keypoint matches.
 Randomness: each RANSAC call draws from its own ``torch.Generator``
 seeded from ``seed`` and the call's place in the run (as the reference
 splits ``PRNGKey(seed)``), so a run is reproducible on one device.
-``Reconstruction.seconds`` holds the wall seconds of each stage.
+``Reconstruction.seconds`` holds the wall seconds of each stage. Program
+spans (`utils/tracing.py`): the root ``sfm.job``; ``sfm.detect``,
+``sfm.match`` and ``sfm.verify`` from the same stage clock; one
+``sfm.register.frame`` a frame tried in the registration loop, holding
+``sfm.pnp`` a RANSAC call (counter ``sfm.pnp.attempts``, one a
+registration ladder) and the BA its acceptance triggers; ``sfm.ba`` a BA
+call.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from tpu3drec_torch.sfm.sampling import seeded_generator
 from tpu3drec_torch.sfm.triangulate import reprojection_errors_np, triangulate_two_view_np
 from tpu3drec_torch.sfm.twoview import estimate_relative_pose
 from tpu3drec_torch.utils.device import resolve_device
+from tpu3drec_torch.utils.tracing import count, record, span
 
 # generator streams of one run (the reference's PRNG key splits)
 _VERIFY, _INIT, _PNP, _PNP_LOOSE = 1, 2, 3, 4
@@ -157,7 +164,7 @@ def run_sfm(
     ``device`` (None means the card). ``depth_maps`` (F, H, W) adds metric
     depth priors to BA; ``features`` takes precomputed (Keypoints, descs)."""
     dev = resolve_device(device)
-    with fp.ieee_fp32():
+    with span("sfm.job"), fp.ieee_fp32():
         return _run_sfm(images, K, max_keypoints, overlap, ba_every, min_track_len, seed,
                         upright, ratio, depth_maps, depth_weight, guided_min_inliers,
                         min_parallax_deg, features, verbose, dev)
@@ -172,13 +179,21 @@ def _run_sfm(images, K, max_keypoints, overlap, ba_every, min_track_len, seed, u
     rec = Reconstruction(K=np.asarray(K, np.float32))
     rec.seconds = {s: 0.0 for s in STAGES}
     K_t = torch.tensor(rec.K, device=dev)
-    clock = time.perf_counter()
+    clock = time.perf_counter_ns()
 
     def lap(stage):
         nonlocal clock
-        now = time.perf_counter()
-        rec.seconds[stage] += now - clock
+        now = time.perf_counter_ns()
+        rec.seconds[stage] += (now - clock) * 1e-9
+        if stage in ("detect", "match", "verify"):  # the others come in pieces
+            record("sfm." + stage, clock, now)
         clock = now
+
+    def bundle_adjust(maps):
+        lap("register")
+        with span("sfm.ba"):
+            _run_ba(rec, tracks, xy, maps, depth_weight, dev)
+        lap("ba")
 
     # 1. detection + description, batched over frames
     if features is not None:
@@ -327,10 +342,8 @@ def _run_sfm(images, K, max_keypoints, overlap, ba_every, min_track_len, seed, u
                 rec.points[tid] = rec.points[tid] * s0
         for f in (0, k):
             _depth_anchor_points(rec, tracks, xy, depth_maps, f)
-    lap("register")
     # polish the seed without depth priors before growing
-    _run_ba(rec, tracks, xy, None, depth_weight, dev)
-    lap("ba")
+    bundle_adjust(None)
     if verbose:
         print(f"[sfm] init pair (0, {k}): {len(rec.points)} landmarks")
 
@@ -356,15 +369,18 @@ def _run_sfm(images, K, max_keypoints, overlap, ba_every, min_track_len, seed, u
         vm[:n] = True
         attempt = pnp_attempts.get(f, 0)
         pnp_attempts[f] = attempt + 1
+        count("sfm.pnp.attempts")
         args = (torch.as_tensor(Xp, device=dev), torch.as_tensor(up, device=dev),
                 torch.as_tensor(vm, device=dev), K_t)
-        res = pnp_ransac(*args, seeded_generator(dev, seed, _PNP, f, attempt))
-        n_inl = int(res.n_inliers)
+        with span("sfm.pnp"):
+            res = pnp_ransac(*args, seeded_generator(dev, seed, _PNP, f, attempt))
+            n_inl = int(res.n_inliers)
         if n_inl >= max(8, int(0.3 * n)):
             return res, n_inl, False
-        res2 = pnp_ransac(*args, seeded_generator(dev, seed, _PNP_LOOSE, f % 6, attempt),
-                          inlier_px=6.0)
-        n2 = int(res2.n_inliers)
+        with span("sfm.pnp"):
+            res2 = pnp_ransac(*args, seeded_generator(dev, seed, _PNP_LOOSE, f % 6, attempt),
+                              inlier_px=6.0)
+            n2 = int(res2.n_inliers)
         if n2 >= max(12, int(0.6 * n)):
             return res2, n2, True
         if verbose:
@@ -377,40 +393,35 @@ def _run_sfm(images, K, max_keypoints, overlap, ba_every, min_track_len, seed, u
         for f in range(F):
             if f in rec.poses:
                 continue
-            X3d, X2d = _gather_2d3d(f)
-            if len(X3d) < 8:
-                if verbose:
-                    print(f"[sfm] frame {f}: only {len(X3d)} 2D-3D, skipping")
-                continue
-            res, n_inl, loose = _try_pnp(f, X3d, X2d)
-            if res is None and len(X3d) >= 30 and f not in ba_retry_done:
-                # one polish + retriangulate + retry per frame
-                ba_retry_done.add(f)
-                lap("register")
-                _run_ba(rec, tracks, xy, depth_maps, depth_weight, dev)
-                lap("ba")
+            with span("sfm.register.frame"):
                 X3d, X2d = _gather_2d3d(f)
-                if len(X3d) >= 8:
-                    res, n_inl, loose = _try_pnp(f, X3d, X2d)
-                    if res is not None and verbose:
-                        print(f"[sfm] frame {f}: registered after BA retry")
-            if res is None:
-                continue
-            rec.poses[f] = (res.R.cpu().numpy(), res.t.cpu().numpy())
-            if depth_maps is not None:
-                _depth_anchor_points(rec, tracks, xy, depth_maps, f)
-            _triangulate_new(rec, tracks, xy, min_track_len)
-            # a loose-gate acceptance leans on BA at once
-            if loose or (len(rec.poses) % ba_every == 0):
-                lap("register")
-                _run_ba(rec, tracks, xy, depth_maps, depth_weight, dev)
-                lap("ba")
-            if verbose:
-                print(f"[sfm] frame {f}: {n_inl}/{len(X3d)} PnP inliers, "
-                      f"{len(rec.points)} landmarks")
-    lap("register")
-    _run_ba(rec, tracks, xy, depth_maps, depth_weight, dev)
-    lap("ba")
+                if len(X3d) < 8:
+                    if verbose:
+                        print(f"[sfm] frame {f}: only {len(X3d)} 2D-3D, skipping")
+                    continue
+                res, n_inl, loose = _try_pnp(f, X3d, X2d)
+                if res is None and len(X3d) >= 30 and f not in ba_retry_done:
+                    # one polish + retriangulate + retry per frame
+                    ba_retry_done.add(f)
+                    bundle_adjust(depth_maps)
+                    X3d, X2d = _gather_2d3d(f)
+                    if len(X3d) >= 8:
+                        res, n_inl, loose = _try_pnp(f, X3d, X2d)
+                        if res is not None and verbose:
+                            print(f"[sfm] frame {f}: registered after BA retry")
+                if res is None:
+                    continue
+                rec.poses[f] = (res.R.cpu().numpy(), res.t.cpu().numpy())
+                if depth_maps is not None:
+                    _depth_anchor_points(rec, tracks, xy, depth_maps, f)
+                _triangulate_new(rec, tracks, xy, min_track_len)
+                # a loose-gate acceptance leans on BA at once
+                if loose or (len(rec.poses) % ba_every == 0):
+                    bundle_adjust(depth_maps)
+                if verbose:
+                    print(f"[sfm] frame {f}: {n_inl}/{len(X3d)} PnP inliers, "
+                          f"{len(rec.points)} landmarks")
+    bundle_adjust(depth_maps)
     return rec
 
 

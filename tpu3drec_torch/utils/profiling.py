@@ -1,39 +1,78 @@
-"""Tracing, timing and roofline accounting (port of
-`tpu3drec/utils/profiling.py`).
+"""Tracing and roofline accounting (port of `tpu3drec/utils/profiling.py`).
 
-`trace` records a torch.profiler trace of the card and the host and writes
-it as a Chrome trace (chrome://tracing, Perfetto). `time_chained` and
-`time_device_loop` time device work with CUDA events and
-``torch.cuda.synchronize``; `roofline` classifies a measured time against
-a chip's peaks, by default those of one H100 SXM. `recording` keeps every
-call of a function with clones of its arguments and result, and
-`held_against` holds the recorded results against another function (a
-kernel's plain version) on the same arguments, bit for bit.
+`trace` records a torch.profiler trace of the card and the host, with the
+port's program spans (`utils/tracing.py`) on a track of their own, and
+writes it as a Chrome trace (chrome://tracing, Perfetto); `roofline`
+classifies a measured time against a chip's peaks, by default those of one
+H100 SXM. `recording` keeps every call of a function with clones of its
+arguments and result, and `held_against` holds the recorded results
+against another function (a kernel's plain version) on the same
+arguments, bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass
 
 import torch
 
+from tpu3drec_torch.utils import tracing
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """torch.profiler trace of the CPU and, when there is one, the card:
-    ``with trace('/tmp/trace'): step()`` writes ``log_dir/trace.json``."""
+    """torch.profiler trace of the CPU and, when there is one, the card,
+    with the program spans of the block: ``with trace('/tmp/trace'):
+    step()`` writes ``log_dir/trace.json``. Tracing is on for the block
+    (and left as it was after it); the spans that finish in it are drained
+    from the tracer into the file."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    was_on = tracing.is_enabled()
+    tracing.enable()
+    t_start = time.time_ns()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            tracing.disable()
+    spans = [s for s in tracing.drain() if s.t0 >= t_start]
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_program_spans(path, spans)
+
+
+_PROGRAM_TRACK = 1 << 30  # thread ids of the program spans' tracks: this, plus one a thread
+
+
+def _add_program_spans(path: str, spans) -> None:
+    """Appends ``spans`` (finished `utils/tracing.py` spans) to the Chrome
+    trace at ``path``, one track a thread named "program spans", on the
+    file's own time base (its ``baseTimeNanoseconds``, 0 where it has
+    none: its times are then Unix microseconds)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tracks, events = os.getpid(), {}, doc.setdefault("traceEvents", [])
+    for s in sorted(spans, key=lambda s: s.t0):
+        tid = tracks.setdefault(s.thread, _PROGRAM_TRACK + len(tracks))
+        args = {"id": s.id, "parent": s.parent, "root": s.root, **(s.counters or {})}
+        events.append({"ph": "X", "cat": "program", "name": s.name, "pid": pid, "tid": tid,
+                       "ts": (s.t0 - base) / 1e3, "dur": (s.t1 - s.t0) / 1e3, "args": args})
+    for n, tid in enumerate(tracks.values()):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                       "args": {"name": "program spans" + (f" {n}" if n else "")}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @dataclass(frozen=True)
@@ -97,83 +136,6 @@ def roofline(seconds: float, flops: float, bytes_moved: float,
     )
 
 
-def _sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-def _elapsed(fn) -> float:
-    """Seconds of ``fn()``: CUDA events around it on the card (after a
-    synchronize), the host clock without one."""
-    if torch.cuda.is_available():
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
-    fn()
-    return time.perf_counter() - t0
-
-
-def time_chained(step_fn, x0, iters: int = 20, warmup: int = 2) -> float:
-    """Steady-state seconds per iteration of ``x = step_fn(x)``, the output
-    of each call feeding the next, so the calls run one after another."""
-    x = x0
-    for _ in range(warmup):
-        x = step_fn(x)
-    _sync()
-    state = {"x": x}
-
-    def loop():
-        for _ in range(iters):
-            state["x"] = step_fn(state["x"])
-
-    return _elapsed(loop) / iters
-
-
-def time_device_loop(body_fn, make_carry, iters=(4, 24), reps=2) -> float:
-    """Per-iteration seconds by the two-length slope: ``carry =
-    body_fn(i, carry)`` run ``n1`` and ``n2`` times from ``make_carry(salt)``
-    (the best of ``reps`` runs of each), returning (t_n2 - t_n1) / (n2 - n1),
-    in which the fixed cost of a run cancels."""
-    n1, n2 = iters
-    best = {n1: float("inf"), n2: float("inf")}
-    salt = 0
-    for _ in range(reps):
-        for n in (n1, n2):
-            salt += 1
-            c = make_carry(float(salt))
-            _sync()
-
-            def loop(c=c, n=n):
-                for i in range(n):
-                    c = body_fn(i, c)
-
-            best[n] = min(best[n], _elapsed(loop))
-    return max((best[n2] - best[n1]) / (n2 - n1), 1e-9)
-
-
-def chain_scalar(out) -> torch.Tensor:
-    """Collapse any nest of tensors (dicts, lists, tuples) to a zero scalar
-    that depends on all of them, for folding into the next iteration's
-    input (``x + chain_scalar(out)``)."""
-    acc = torch.zeros(())
-    stack = [out]
-    while stack:
-        o = stack.pop()
-        if isinstance(o, dict):
-            stack.extend(o.values())
-        elif isinstance(o, (list, tuple)):
-            stack.extend(o)
-        elif isinstance(o, torch.Tensor):
-            acc = acc.to(o.device) + torch.sum(o).to(torch.float32) * 0
-    return acc
-
-
 def _clone(x):
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
@@ -204,12 +166,13 @@ def recording(module, name: str):
     clones of its arguments and its result (tensors cloned, dicts, lists
     and tuples walked), so that what a path's own launches returned can be
     held against the plain version on the inputs the path gave them.
-    Yields the list of (args, result) it fills."""
+    Yields the list of (args, result) it fills; keyword arguments are
+    passed on and not kept."""
     calls = []
 
     def wrap(_, fn):
-        def wrapped(*args):
-            out = fn(*args)
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
             calls.append((_clone(args), _clone(out)))
             return out
         return wrapped
