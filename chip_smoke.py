@@ -26,8 +26,10 @@ Phases, one flushed line each with its wall seconds:
      262,144, bit for bit, timed at 65,536 (inside the 50 MB L2) and at
      262,144 (112 MB, past it); then `ba_solve(use_pallas_blocks=True)` (the
      kernel's path) against the jacfwd path on a 64-camera, 8192-landmark,
-     65,536-observation problem, with every launch of the block-path solve
-     held against the plain version on the inputs the solve gave it
+     65,536-observation problem, with every run of the kernel in the
+     block-path solve (the first LM step eager, the rest replays of a CUDA
+     graph of the step) counted in the profiler's trace and held against
+     the plain version on the inputs the solve gave it
   8. SfM: 12 seeded frames of 480x640 with the reference camera through
      `sfm_pipeline.run` (512 keypoints, overlap 3) -> pose txt + sparse PLY;
      registered frames, ATE after similarity alignment, time per stage; the
@@ -282,9 +284,8 @@ def kernel_times(fn, names, dev, reps: int, warmup: int = 1):
     call_ms = time_ms(fn, dev, reps, warmup)
     if dev.type != "cuda":
         return None, call_ms
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     sync(dev)
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(dev) as prof:
         for _ in range(reps):
             fn()
         sync(dev)
@@ -313,6 +314,59 @@ def hold_against_plain(calls, plain, name: str) -> float:
     check(equal == len(calls), f"{name}: {len(calls) - equal} of {len(calls)} calls differ, "
           f"the first at (call, output) {first}, max err {max_err}")
     return max_err
+
+
+@contextlib.contextmanager
+def replays_recorded(calls):
+    """Inside ``recording``: a call made while BA's LM step was captured in
+    a CUDA graph (`sfm/ba.py::_LMGraph`) ran nothing then, and the clones
+    ``recording`` took of it were captured with it, so that each replay
+    writes that replay's arguments and result into them. After every
+    replay this keeps a copy of them in ``calls``; on the way out it drops
+    the captured entries, so ``calls`` holds one entry a run. The solve has
+    to capture its graph inside the block: a graph captured before it
+    replays without clones."""
+    from tpu3drec_torch.sfm import ba
+    from tpu3drec_torch.utils.profiling import _clone
+
+    captured = {}
+
+    def wrap(name, fn):
+        def capture(graph, *args):
+            first = len(calls)
+            fn(graph, *args)
+            captured[graph] = calls[first:]
+
+        def replay(graph):
+            fn(graph)
+            calls.extend(_clone(c) for c in captured.get(graph, ()))
+        return capture if name == "capture" else replay
+
+    try:
+        with patched(ba._LMGraph, ("capture", "replay"), wrap):
+            yield calls
+    finally:
+        gone = {id(c) for cs in captured.values() for c in cs}
+        calls[:] = [c for c in calls if id(c) not in gone]
+
+
+def device_runs(prof, name: str) -> int | None:
+    """Runs on the card of the kernels whose names hold ``name``, in a
+    torch.profiler trace (replays of a CUDA graph included); None without
+    one."""
+    if prof is None:
+        return None
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+
+
+def profiled(dev):
+    """torch.profiler's CPU and CUDA activity on the card; nothing (None)
+    on the CPU."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext(None)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +781,13 @@ def phase_ba_blocks(dev, rng, gpu: bool, seed: int):
 
 
 def ba_solve_paths(dev, rng, gpu: bool, ph):
-    """The block path (the kernel's main path) against the jacfwd path."""
+    """The block path (the kernel's main path) against the jacfwd path. On
+    the card both solves run their first LM step eagerly and replay a CUDA
+    graph of it for the rest (`sfm/ba.py`): the kernel's runs are read from
+    the profiler's trace of the solve, and each of them, replays included,
+    is held bit for bit against the plain version on the inputs it was
+    given. The times per iteration are a second solve's, unrecorded, whose
+    steps all replay the cached graph."""
     from tpu3drec_torch.ops import ba_blocks
     from tpu3drec_torch.sfm import ba
 
@@ -738,24 +798,29 @@ def ba_solve_paths(dev, rng, gpu: bool, ph):
     sync(dev)
     out = {}
     for blocks in (False, True):
-        if blocks:
-            ba_blocks.reset_launches()
-        with recording(ba, "ba_blocks") as calls:
-            t0 = time.perf_counter()
+        ba_blocks.reset_launches()
+        with recording(ba, "ba_blocks") as calls, replays_recorded(calls), \
+                profiled(dev) as prof:
             res = ba.ba_solve(prob, max_lm_iters=12, cg_iters=10, use_pallas_blocks=blocks)
             sync(dev)
-            secs = time.perf_counter() - t0
-        launches = ba_blocks.launches if blocks else None
-        if blocks:  # every launch of the solve, on the inputs it was given
+        launches, runs = ba_blocks.launches, device_runs(prof, "ba_blocks_kernel")
+        if blocks:  # every run of the kernel in the solve, on the inputs it was given
             main_err = hold_against_plain(calls, ba_blocks.ba_blocks_plain, "ba_blocks (solve)")
+        check(len(calls) == (res.n_iters if blocks else 0),
+              f"{len(calls)} ba_blocks calls recorded in {res.n_iters} LM iterations")
+        if gpu:  # the trace counts the kernel's runs; the module's count agrees
+            check(runs == len(calls) and launches == runs,
+                  f"ba_blocks ran {runs} times in the trace, counted {launches}, "
+                  f"recorded {len(calls)}, in {res.n_iters} LM iterations")
+        t0 = time.perf_counter()
+        timed = ba.ba_solve(prob, max_lm_iters=12, cg_iters=10, use_pallas_blocks=blocks)
+        sync(dev)
+        secs = time.perf_counter() - t0
         r = ba.residuals(prob._replace(cam_params=res.cam_params, points=res.points))
         out[blocks] = dict(init=float(res.initial_cost), final=float(res.final_cost),
-                           iters=res.n_iters, s_per_iter=secs / res.n_iters,
-                           mean_px=float(r.abs().mean()), launches=launches)
+                           iters=res.n_iters, s_per_iter=secs / timed.n_iters,
+                           mean_px=float(r.abs().mean()), runs=runs, launches=launches)
     ref, blk = out[False], out[True]
-    if gpu:
-        check(blk["launches"] == blk["iters"],
-              f"ba_blocks launched {blk['launches']} times in {blk['iters']} LM iterations")
     for name, o in (("jacfwd", ref), ("blocks", blk)):
         check(o["final"] < o["init"], f"{name}: final cost {o['final']} >= initial {o['init']}")
     check(blk["mean_px"] < max(10 * ref["mean_px"], 1e-3),
@@ -766,7 +831,8 @@ def ba_solve_paths(dev, rng, gpu: bool, ph):
                    jacfwd_mean_px=round(ref["mean_px"], 4),
                    blocks_mean_px=round(blk["mean_px"], 4),
                    costs=f"{ref['init']:.1f}->{ref['final']:.1f}|{blk['final']:.1f}",
-                   solve_launches_vs_plain=f"{len(calls)} bit-equal")
+                   kernel_runs_in_trace=blk["runs"],
+                   solve_runs_vs_plain=f"{len(calls)} bit-equal")
     return blk["launches"], main_err
 
 
@@ -1259,8 +1325,7 @@ def device_launches(fn, dev) -> int | None:
     if dev.type != "cuda":
         return None
     sync(dev)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled(dev) as prof:
         fn()
         sync(dev)
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)

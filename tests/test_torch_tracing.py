@@ -206,10 +206,32 @@ def sfm_images():
     return np.stack(images)
 
 
-def test_sfm_spans_agree_with_its_stage_clock(sfm_images):
+class _Ticks:
+    """A clock that moves 1 us at every reading and at no other time: the
+    stage laps of `sfm/incremental.py` and the tracer's spans read it in
+    place of ``time.perf_counter_ns``, so that a wall-clock stall between
+    two readings (a garbage collection, the scheduler under parallel test
+    workers) cannot move the spans against the laps."""
+
+    def __init__(self):
+        self.ns = 0
+
+    def perf_counter_ns(self):
+        self.ns += 1000
+        return self.ns
+
+    def time_ns(self):
+        return time.time_ns()
+
+
+def test_sfm_spans_agree_with_its_stage_clock(sfm_images, monkeypatch):
     """The ``sfm.ba`` spans sum to ``Reconstruction.seconds["ba"]``, the
-    ``sfm.detect``/``match``/``verify`` spans equal its laps, and the
-    ``ba.lm_iters`` counters sum to the LM iterations `ba_solve` reported."""
+    ``sfm.detect``/``match``/``verify`` spans equal its laps, the
+    ``ba.lm_iters`` counters sum to the LM iterations `ba_solve` reported,
+    and on the CPU no LM iteration replays a CUDA graph."""
+    ticks = _Ticks()
+    monkeypatch.setattr(incremental, "time", ticks)
+    monkeypatch.setattr(tracing, "time", ticks)
     tracing.enable()
     with profiling.recording(incremental, "ba_solve") as calls:
         rec = incremental.run_sfm(sfm_images, K, max_keypoints=128, overlap=3, seed=0,
@@ -230,6 +252,7 @@ def test_sfm_spans_agree_with_its_stage_clock(sfm_images):
     assert all(s.parent in {b.id for b in ba} for s in solves)
     iters = sum(s.counters["ba.lm_iters"] for s in solves)
     assert iters == sum(BAResult(*out).n_iters for _, out in calls) > 0  # clones are tuples
+    assert all(s.counters["ba.graph_replays"] == 0 for s in solves)
     frames = by["sfm.register.frame"]
     assert frames and all(s.parent == root for s in frames)
     attempts = sum((s.counters or {}).get("sfm.pnp.attempts", 0) for s in frames)

@@ -24,9 +24,13 @@ import torch
 
 from tpu3drec_torch.utils.device import FORWARD_AD_LOCK
 
-# Kernel launches since the last reset: chip_smoke.py reads it to show that
-# the main path went through the kernel.
+# Runs of the kernel since the last reset: chip_smoke.py reads it to show that
+# the main path went through the kernel. A launch recorded into a CUDA graph
+# runs nothing then and counts in ``captured`` instead; whoever replays the
+# graph adds its launches here once a replay (`add_launches`); chip_smoke.py
+# holds the count against the kernel's runs in a profiler trace.
 launches = 0
+captured = 0
 
 _KEYS = ("res", "U", "V", "W", "bc", "bp", "Jc", "Jp")
 _WIDTHS = (2, 36, 9, 18, 6, 3, 12, 6)
@@ -36,6 +40,12 @@ _SHAPES = ((2,), (6, 6), (3, 3), (6, 3), (6,), (3,), (2, 6), (2, 3))
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def add_launches(n: int) -> None:
+    """Counts ``n`` runs of the kernel made by replaying a CUDA graph."""
+    global launches
+    launches += n
 
 
 def intrinsics_of(K) -> tuple[float, float, float, float]:
@@ -126,7 +136,7 @@ def _card(device: torch.device) -> tuple[int, int]:
 def ba_blocks_cuda(Xc, Rmat, uv, w, intrinsics):
     """Launch the kernel; returns the dict of per-observation blocks, views
     of one buffer laid out by `output_layout`."""
-    global launches
+    global launches, captured
     _check(Xc, Rmat, uv, w)
     if Xc.device.type != "cuda":
         raise ValueError(f"ba_blocks_cuda takes CUDA tensors, got {Xc.device}")
@@ -145,7 +155,10 @@ def ba_blocks_cuda(Xc, Rmat, uv, w, intrinsics):
                 *[base + 4 * off for _, off, _, _ in regions], blocks, stream)
     if rc != 0:
         raise RuntimeError(f"ba_blocks kernel launch failed: cudaError {rc}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return {key: buf[off:off + k * O].view(shape) for key, off, k, shape in regions}
 
 

@@ -27,13 +27,32 @@ sum, the costs and the weight total are all-reduced over the axis, so the
 camera and landmark systems, the CG vectors and their dot products are the
 same on every rank, and the stop test is read from an all-reduced flag.
 
+CUDA graphs: on a CUDA device without a mesh, the LM iterations replay
+one captured ``torch.cuda.CUDAGraph`` of the step instead of dispatching
+its several hundred small operations from Python each time. The graph
+reads the problem from static buffers that each call fills with
+``copy_``, and reads and overwrites the state (cameras, points, damping,
+cost, stop flag) in place; the host reads the stop flag after every
+iteration, as the eager loop does, so the iterations and the early exit
+are the eager loop's. Graphs are cached by everything that fixes the
+captured work (`graph_key`), at most ``GRAPH_CACHE_SIZE`` a thread, the
+least recently used evicted. On a miss the first iteration runs eagerly
+as the warm-up and, unless the loop ends there (stopped, or at
+``max_lm_iters``), the step is captured and replayed for the rest. The
+graphs of a thread share one memory pool; captures, one at a time in the
+process, go through one side stream a device. The CPU and the mesh path
+keep the eager loop.
+
 Tracing (`utils/tracing.py`): the span ``ba.solve`` around the LM loop
-and its counter ``ba.lm_iters``. The PCG loop has no early exit, so it
+and its counters ``ba.lm_iters``, ``ba.graph_replays`` (iterations run as
+a replay) and ``ba.graph_captures``. The PCG loop has no early exit, so it
 runs ``cg_iters`` times an LM iteration and has no counter of its own.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +61,7 @@ from torch.func import jacfwd, vmap
 
 from tpu3drec_torch.core import fp
 from tpu3drec_torch.core.se3 import axis_angle_to_matrix, matrix_to_axis_angle
+from tpu3drec_torch.ops import ba_blocks as _blocks
 from tpu3drec_torch.ops.ba_blocks import ba_blocks, intrinsics_of
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import FORWARD_AD_LOCK, resolve_device
@@ -102,12 +122,18 @@ def _residual_one_depth(cam, X, K, uv, d, wd):
     return torch.stack([u - uv[0], v - uv[1], wd * has * (Xc[2] - d)])
 
 
-def residuals(p: BAProblem) -> torch.Tensor:
-    """(O, 2) reprojection residuals, or (O, 3) with the depth-prior row."""
+def _depth_weight(p: BAProblem) -> torch.Tensor:
+    return torch.as_tensor(p.depth_weight, dtype=p.uv.dtype, device=p.uv.device)
+
+
+def residuals(p: BAProblem, wd: torch.Tensor | None = None) -> torch.Tensor:
+    """(O, 2) reprojection residuals, or (O, 3) with the depth-prior row
+    (``wd``: ``p.depth_weight`` as a tensor on the problem's device, made
+    here when not given)."""
     cams = p.cam_params[p.cam_idx]
     pts = p.points[p.pt_idx]
     if p.depth is not None:
-        wd = torch.as_tensor(p.depth_weight, dtype=p.uv.dtype, device=p.uv.device)
+        wd = _depth_weight(p) if wd is None else wd
         return vmap(_residual_one_depth, in_dims=(0, 0, None, 0, 0, None))(
             cams, pts, p.K, p.uv, p.depth, wd)
     return vmap(_project_one, in_dims=(0, 0, None))(cams, pts, p.K) - p.uv
@@ -119,14 +145,14 @@ def huber_weights(r: torch.Tensor, delta: float) -> torch.Tensor:
     return torch.where(n <= delta, torch.ones_like(n), delta / torch.clamp(n, min=1e-12))
 
 
-def _obs_jacobians(p: BAProblem):
+def _obs_jacobians(p: BAProblem, wd: torch.Tensor | None = None):
     """Per-observation Jacobians: (O, i, 6) wrt the camera, (O, i, 3) wrt the
-    point, i = 2, or 3 with depth rows."""
+    point, i = 2, or 3 with depth rows (``wd`` as in `residuals`)."""
     cams = p.cam_params[p.cam_idx]
     pts = p.points[p.pt_idx]
     with FORWARD_AD_LOCK:
         if p.depth is not None:
-            wd = torch.as_tensor(p.depth_weight, dtype=p.uv.dtype, device=p.uv.device)
+            wd = _depth_weight(p) if wd is None else wd
             jac = jacfwd(_residual_one_depth, argnums=(0, 1))
             return vmap(jac, in_dims=(0, 0, None, 0, 0, None))(cams, pts, p.K, p.uv, p.depth,
                                                                wd)
@@ -142,36 +168,23 @@ def _huber_cost(n, huber_px):
     return torch.where(n <= huber_px, 0.5 * n ** 2, huber_px * (n - 0.5 * huber_px))
 
 
-def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px: float = 2.0,
-             init_lambda: float = 1e-3, fix_cam_mask=None,
-             use_pallas_blocks: bool = False, mesh=None, axis="space") -> BAResult:
-    """Run LM. ``fix_cam_mask`` (F,) or (F, 6): 1.0 free, 0.0 frozen (default:
-    camera 0 frozen for the gauge). ``use_pallas_blocks=True`` takes the
-    Jacobians from the BA-blocks kernel and updates on the manifold; it
-    refuses depth priors, as the reference does. With ``mesh``, ``p``
-    holds this rank's observations and the sums reduce over ``axis``."""
-    if use_pallas_blocks and p.depth is not None:
-        raise ValueError("use_pallas_blocks does not support depth priors")
+def _lm_functions(p: BAProblem, cam_free, huber_px, cg_iters, use_pallas_blocks, intr, red):
+    """(cost_of, lm_step) on problem ``p``. Every tensor they read besides
+    their arguments and ``p`` is made here, once, so that an LM step
+    neither copies from the host nor reads from the device."""
     F = p.cam_params.shape[0]
     L = p.points.shape[0]
     dev, dt = p.cam_params.device, p.cam_params.dtype
-    if fix_cam_mask is None:
-        fix_cam_mask = torch.cat([torch.zeros(1), torch.ones(F - 1)])
-    fix_cam_mask = torch.as_tensor(fix_cam_mask, dtype=dt, device=dev)
-    cam_free = fix_cam_mask[:, None] if fix_cam_mask.ndim == 1 else fix_cam_mask
-    intr = intrinsics_of(p.K) if use_pallas_blocks else None
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
+    wd = None if p.depth is None else _depth_weight(p)
     ein = torch.einsum
-
-    def red(x, op="sum"):  # over the ranks' observations
-        return x if mesh is None else all_reduce(mesh, x, axis, op)
 
     def seg(vals, idx, num):
         return red(_seg_sum(vals, idx, num))
 
     def cost_of(cam_params, points):
-        r = residuals(p._replace(cam_params=cam_params, points=points))
+        r = residuals(p._replace(cam_params=cam_params, points=points), wd)
         c = _huber_cost(torch.linalg.vector_norm(r[..., :2], dim=-1), huber_px)
         if r.shape[-1] > 2:
             # Huber on the depth-prior row too: depth lookups at occlusion
@@ -181,7 +194,7 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
 
     def lm_step(cam_params, points, lam, cost):
         prob = p._replace(cam_params=cam_params, points=points)
-        r = residuals(prob)
+        r = residuals(prob, wd)
         w = p.weight * huber_weights(r, huber_px)
         if r.shape[-1] > 2:
             # row-wise robustness of the depth prior (IRLS sqrt-weight on
@@ -196,7 +209,7 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
             blocks = ba_blocks(Xc.contiguous(), Rmat.contiguous(), p.uv, w.contiguous(), intr)
             Jc, Jp = blocks["Jc"], blocks["Jp"]
         else:
-            Jc, Jp = _obs_jacobians(prob)
+            Jc, Jp = _obs_jacobians(prob, wd)
         if Jc.shape[1] > 2:
             scale = torch.stack([torch.ones_like(s_d), torch.ones_like(s_d), s_d], 1)[..., None]
             Jc = Jc * scale
@@ -212,13 +225,14 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
         # additive (Levenberg) damping
         U_l = U + lam * eye6
         V_l = V + lam * eye3
-        V_inv = torch.linalg.inv(V_l + 1e-12 * eye3)
+        # inv_ex: the kernels of inv without its host-side check of the info
+        V_inv = torch.linalg.inv_ex(V_l + 1e-12 * eye3).inverse
 
         # reduced RHS b~ = b_c - W V^-1 b_p, assembled per observation
         y = ein("lab,lb->la", V_inv, b_p)
         Wy = ein("oia,oib,ob->oa", wJc, Jp, y[p.pt_idx])
         b_tilde = (b_c - seg(Wy, p.cam_idx, F)) * cam_free
-        U_inv = torch.linalg.inv(U_l + 1e-12 * eye6)  # block-Jacobi preconditioner
+        U_inv = torch.linalg.inv_ex(U_l + 1e-12 * eye6).inverse  # block-Jacobi preconditioner
 
         def S_matvec(v):
             v = v * cam_free
@@ -279,17 +293,220 @@ def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px:
                 | (~accept & (lam >= 1e6)))
         return cam_params, points, lam, cost_out, stop
 
+    return cost_of, lm_step
+
+
+# CUDA graphs of the LM step, by the padded problem's shapes. LM steps of one
+# problem size replay one graph; a bundle adjuster that pads its problems to
+# powers of two (`incremental.py::_run_ba`) meets a few sizes again and again.
+GRAPH_CACHE_SIZE = 16
+_CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process
+_capture_streams: dict = {}  # the side stream a device that captures go through
+_graph_state = threading.local()  # each thread's cache and memory pools
+
+
+def graph_key(p: BAProblem, cam_free, cg_iters, huber_px, use_pallas_blocks, intr) -> tuple:
+    """Everything that fixes the work an LM step's graph captured: the
+    problem's sizes O, F and L, its depth prior and that prior's weight, the
+    Jacobians' path (and the intrinsics the BA-blocks kernel takes as
+    arguments), the PCG steps, the Huber threshold, the camera mask's shape,
+    dtypes and device, and the settings that choose kernels."""
+    has_depth = p.depth is not None
+    return (p.uv.shape[0], p.cam_params.shape[0], p.points.shape[0], has_depth,
+            float(p.depth_weight) if has_depth else None, bool(use_pallas_blocks), intr,
+            int(cg_iters), float(huber_px), tuple(cam_free.shape), p.cam_params.dtype,
+            p.cam_idx.dtype, p.cam_params.device, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+
+
+class GraphCache:
+    """At most ``size`` entries, the least recently used evicted first. An
+    evicted entry is dropped, and with it its graph and its static tensors."""
+
+    def __init__(self, size: int = GRAPH_CACHE_SIZE):
+        self.size = size
+        self.entries: OrderedDict = OrderedDict()
+
+    def get(self, key):
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry) -> None:
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+
+    def __len__(self):
+        return len(self.entries)
+
+
+class _LMGraph:
+    """One problem size's LM step, captured in a CUDA graph, with the static
+    tensors it reads and writes: the problem and the camera mask, filled by
+    `load`, and the state (cameras, points, damping, cost, stop flag), which
+    a step reads and overwrites in place."""
+
+    def __init__(self, p: BAProblem, cam_free, huber_px, cg_iters, use_pallas_blocks, intr):
+        like = lambda t: None if t is None else torch.empty_like(  # noqa: E731
+            t, memory_format=torch.contiguous_format)
+        self.p = BAProblem(*(like(t) for t in p[:8]), p.depth_weight)
+        self.cam_free = like(cam_free)
+        self.lam = torch.empty((), dtype=p.cam_params.dtype, device=p.cam_params.device)
+        self.cost = torch.empty_like(self.lam)
+        self.stop = torch.empty((), dtype=torch.bool, device=p.cam_params.device)
+        self.cost_of, self._step = _lm_functions(self.p, self.cam_free, huber_px, cg_iters,
+                                                 use_pallas_blocks, intr, lambda x, *_: x)
+        self.graph = None
+        self.kernel_runs = 0  # BA-blocks launches captured, run once a replay
+
+    def load(self, p: BAProblem, cam_free, lam) -> torch.Tensor:
+        """Fills the static problem and state from ``p``; returns its cost."""
+        for dst, src in zip(self.p[:8], p[:8]):
+            if dst is not None:
+                dst.copy_(src)
+        self.cam_free.copy_(cam_free)
+        self.lam.copy_(lam)
+        cost = self.cost_of(self.p.cam_params, self.p.points)
+        self.cost.copy_(cost)
+        return cost
+
+    def step(self) -> None:
+        """One LM iteration from the static state into it."""
+        out = self._step(self.p.cam_params, self.p.points, self.lam, self.cost)
+        for dst, src in zip((self.p.cam_params, self.p.points, self.lam, self.cost, self.stop),
+                            out):
+            dst.copy_(src)
+
+    def capture(self, stream, pool) -> None:
+        """Records one step into a graph on ``stream`` (a capture cannot go
+        through the default stream), after the work queued so far on this
+        thread's stream, whose state it reads."""
+        graph = torch.cuda.CUDAGraph()
+        before = _blocks.captured
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.step()
+            finally:
+                graph.capture_end()
+        self.graph = graph
+        self.kernel_runs = _blocks.captured - before
+
+    def replay(self) -> None:
+        self.graph.replay()
+        if self.kernel_runs:
+            _blocks.add_launches(self.kernel_runs)
+
+
+def _thread_graphs(dev: torch.device):
+    """This thread's graph cache and its memory pool on ``dev``: the graphs
+    of one thread run one at a time, so they share one pool; another
+    thread's graphs, which may replay at the same time, keep a pool of their
+    own."""
+    st = _graph_state.__dict__
+    if "cache" not in st:
+        st.update(cache=GraphCache(), pools={})
+    if dev not in st["pools"]:
+        st["pools"][dev] = torch.cuda.graph_pool_handle()
+    return st["cache"], st["pools"][dev]
+
+
+def _capture_stream(dev: torch.device):
+    """The side stream that captures on ``dev`` go through (under
+    ``_CAPTURE_LOCK``, so one capture at a time uses it)."""
+    if dev not in _capture_streams:
+        _capture_streams[dev] = torch.cuda.Stream(dev)
+    return _capture_streams[dev]
+
+
+def _graphed(p: BAProblem, mesh) -> bool:
+    """Whether the LM loop replays a graph: on a CUDA device, without a mesh
+    (whose all-reduces are not captured)."""
+    return mesh is None and p.cam_params.device.type == "cuda"
+
+
+def _solve_graphed(p, cam_free, lam, max_lm_iters, key, make):
+    """The LM loop as replays of the cached graph of ``key``; on a miss the
+    first iteration runs eagerly and, unless the loop ends there, the step
+    is captured. Returns (cams, points, initial cost, cost, iterations,
+    replays, captures)."""
+    dev = p.cam_params.device
+    cache, pool = _thread_graphs(dev)
+    entry = cache.get(key)
+    if entry is None:
+        entry = make()
+    init_cost = entry.load(p, cam_free, lam)
+    it = replays = captures = 0
+    while it < max_lm_iters:
+        it += 1
+        if entry.graph is None:  # the warm-up, eagerly on this thread's stream
+            entry.step()
+            stop = bool(entry.stop)
+            if not stop and it < max_lm_iters:
+                with _CAPTURE_LOCK:
+                    entry.capture(_capture_stream(dev), pool)
+                captures += 1
+                cache.put(key, entry)
+        else:
+            entry.replay()
+            replays += 1
+            stop = bool(entry.stop)  # the one host read an iteration
+        if stop:
+            break
+    return (entry.p.cam_params.clone(), entry.p.points.clone(), init_cost, entry.cost.clone(),
+            it, replays, captures)
+
+
+def ba_solve(p: BAProblem, max_lm_iters: int = 20, cg_iters: int = 20, huber_px: float = 2.0,
+             init_lambda: float = 1e-3, fix_cam_mask=None,
+             use_pallas_blocks: bool = False, mesh=None, axis="space") -> BAResult:
+    """Run LM. ``fix_cam_mask`` (F,) or (F, 6): 1.0 free, 0.0 frozen (default:
+    camera 0 frozen for the gauge). ``use_pallas_blocks=True`` takes the
+    Jacobians from the BA-blocks kernel and updates on the manifold; it
+    refuses depth priors, as the reference does. With ``mesh``, ``p``
+    holds this rank's observations and the sums reduce over ``axis``.
+    On a CUDA device without a mesh the iterations replay a CUDA graph of
+    the step, captured once per problem size (module docstring)."""
+    if use_pallas_blocks and p.depth is not None:
+        raise ValueError("use_pallas_blocks does not support depth priors")
+    F = p.cam_params.shape[0]
+    dev, dt = p.cam_params.device, p.cam_params.dtype
+    if fix_cam_mask is None:
+        fix_cam_mask = torch.cat([torch.zeros(1), torch.ones(F - 1)])
+    fix_cam_mask = torch.as_tensor(fix_cam_mask, dtype=dt, device=dev)
+    cam_free = fix_cam_mask[:, None] if fix_cam_mask.ndim == 1 else fix_cam_mask
+    intr = intrinsics_of(p.K) if use_pallas_blocks else None
+
+    def red(x, op="sum"):  # over the ranks' observations
+        return x if mesh is None else all_reduce(mesh, x, axis, op)
+
     with fp.ieee_fp32(), span("ba.solve"):
-        init_cost = cost_of(p.cam_params, p.points)
-        cams, pts, cost = p.cam_params, p.points, init_cost
         lam = torch.as_tensor(init_lambda, dtype=dt, device=dev)
-        it = 0
-        # early exit: one host read of the stop flag per iteration
-        while it < max_lm_iters:
-            cams, pts, lam, cost, stop = lm_step(cams, pts, lam, cost)
-            it += 1
-            if bool(stop) if mesh is None else bool(red(stop.to(torch.int32).reshape(1), "max")):
-                break
+        replays = captures = 0
+        if _graphed(p, mesh):
+            key = graph_key(p, cam_free, cg_iters, huber_px, use_pallas_blocks, intr)
+            cams, pts, init_cost, cost, it, replays, captures = _solve_graphed(
+                p, cam_free, lam, max_lm_iters, key,
+                lambda: _LMGraph(p, cam_free, huber_px, cg_iters, use_pallas_blocks, intr))
+        else:
+            cost_of, lm_step = _lm_functions(p, cam_free, huber_px, cg_iters,
+                                             use_pallas_blocks, intr, red)
+            init_cost = cost_of(p.cam_params, p.points)
+            cams, pts, cost = p.cam_params, p.points, init_cost
+            it = 0
+            # early exit: one host read of the stop flag per iteration
+            while it < max_lm_iters:
+                cams, pts, lam, cost, stop = lm_step(cams, pts, lam, cost)
+                it += 1
+                if bool(stop) if mesh is None else bool(red(stop.to(torch.int32).reshape(1),
+                                                            "max")):
+                    break
         count("ba.lm_iters", it)
+        count("ba.graph_replays", replays)
+        count("ba.graph_captures", captures)
     return BAResult(cam_params=cams, points=pts, initial_cost=init_cost, final_cost=cost,
                     n_iters=it)
