@@ -2,6 +2,13 @@
 supervised smooth-L1 on ground-truth disparity, one step = forward, loss
 over valid-disparity pixels, backward, Adam update.
 
+``StereoTrainConfig.arch`` picks the net: ``"psmnet_class"`` (the
+default), the PSMNet-class sibling that the JAX package has, flax's
+initialisers, one output; or ``"stackhourglass"``, the published PSMNet
+(`models/psmnet.py::StackHourglassPSMNet`), the published initialisation,
+and the published loss 0.5 L1 + 0.7 L2 + L3 over its three heads, each
+term over the pixels with ``mask`` and 0 <= disparity < ``max_disp``.
+
 As in `models/training.py`, the module holds the weights and batch
 statistics and ``torch.optim.Adam`` (optax's defaults) the moments:
 `init_stereo_state` returns (model, state), the step updates both in place,
@@ -22,11 +29,16 @@ import numpy as np
 import torch
 
 from tpu3drec_torch.core import fp
-from tpu3drec_torch.models.psmnet import PSMNet, smooth_l1_terms
+from tpu3drec_torch.models.psmnet import (
+    SPP_POOLS, PSMNet, StackHourglassPSMNet, init_psmnet_params, smooth_l1_terms)
 from tpu3drec_torch.models.training import (
     TrainState, autocast, data_parallel, init_flax_params, make_optimizer, sync_gradients)
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
+from tpu3drec_torch.utils.tracing import span
+
+ARCHS = ("psmnet_class", "stackhourglass")
+HEAD_WEIGHTS = (0.5, 0.7, 1.0)  # the published main.py's weights of the three heads
 
 
 @dataclass
@@ -37,18 +49,38 @@ class StereoTrainConfig:
     height: int = 256
     width: int = 512
     max_disp: int = 64
-    feat_ch: int = 32
+    feat_ch: int = 32               # the sibling's width; the published net's are fixed
     compute_dtype: str = "float32"  # "bfloat16": the net under bf16 autocast
+    arch: str = "psmnet_class"      # or "stackhourglass", the published PSMNet
+    # the stacked hourglass's SPP pools, in px at 1/4: published; only tests
+    # and the benchmark's CPU-sized cell set smaller ones, for small inputs
+    spp_pools: tuple = SPP_POOLS
+
+
+def build_stereo_model(cfg, generator: torch.Generator,
+                       spp_pools=SPP_POOLS) -> torch.nn.Module:
+    """The net ``cfg.arch`` names (``cfg``: a `StereoTrainConfig` or
+    `pipelines/stereo.py::StereoPipelineConfig`), on the CPU, initialised
+    from ``generator``: flax's initialisers for the sibling, the published
+    ones for the stacked hourglass (with SPP pools ``spp_pools``)."""
+    if cfg.arch == "stackhourglass":
+        model = StackHourglassPSMNet(max_disp=cfg.max_disp, spp_pools=tuple(spp_pools))
+        init_psmnet_params(model, generator)
+    elif cfg.arch == "psmnet_class":
+        model = PSMNet(max_disp=cfg.max_disp, feat_ch=cfg.feat_ch)
+        init_flax_params(model, generator)
+    else:
+        raise ValueError(f"arch must be one of {ARCHS}, not {cfg.arch!r}")
+    return model
 
 
 def init_stereo_state(seed, cfg: StereoTrainConfig, device=None):
-    """A fresh PSMNet on ``device`` (default the card), flax's initialisers
-    drawn on the CPU from ``seed`` (an int or a CPU ``torch.Generator``),
-    and its Adam optimizer. Returns (model, state)."""
+    """A fresh net of ``cfg.arch`` on ``device`` (default the card), its
+    weights drawn on the CPU from ``seed`` (an int or a CPU
+    ``torch.Generator``), and its Adam optimizer. Returns (model, state)."""
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
-    model = PSMNet(max_disp=cfg.max_disp, feat_ch=cfg.feat_ch)
-    init_flax_params(model, gen)
+    model = build_stereo_model(cfg, gen, cfg.spp_pools)
     model.to(dev)
     lr = cfg.learning_rate
     state = TrainState(model, make_optimizer(cfg, model.parameters()), lambda step: lr)
@@ -69,26 +101,46 @@ def make_stereo_train_step(cfg: StereoTrainConfig, mesh=None, axis: str = "data"
     disparity in pixels and "mask" (N, H, W) validity, as numpy arrays or
     tensors. The loss is float32 whatever the net's compute dtype. With
     ``mesh``, ``batch`` is this rank's shard of the global batch and the
-    loss returned is the global batch's."""
+    loss returned is the global batch's. With the stacked hourglass the
+    loss weighs its three heads (`HEAD_WEIGHTS`) and keeps only pixels with
+    0 <= disparity < ``max_disp``."""
+    stack = cfg.arch == "stackhourglass"
 
     def train_step(state: TrainState, batch: dict):
+        with span("train.step"):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         left, right = (to_model(model, batch[k], image=True) for k in ("left", "right"))
         gt, mask = (to_model(model, batch[k]) for k in ("disp", "mask"))
         with fp.ieee_fp32():
-            opt.zero_grad(set_to_none=True)
-            with autocast(cfg, left.device), data_parallel(mesh, axis):
-                disp = model(left, right, train=True)
-            num, den = smooth_l1_terms(
-                disp.to(torch.promote_types(disp.dtype, torch.float32)), gt, mask)
-            if mesh is not None:
-                den = all_reduce(mesh, den, axis)  # the global batch's valid pixels
-            loss = num / torch.clamp(den, min=1.0)
-            loss.backward()
-            sync_gradients(model.parameters(), mesh, axis, 1)
-            for group in opt.param_groups:
-                group["lr"] = state.schedule(state.step)
-            opt.step()
+            with span("train.optimizer"):
+                opt.zero_grad(set_to_none=True)
+            with autocast(cfg, left.device), data_parallel(mesh, axis), span("train.forward"):
+                preds = model(left, right, train=True)
+            with span("train.loss"):
+                if stack:  # the published main.py: disp_true < maxdisp
+                    mask = mask * ((gt >= 0) & (gt < cfg.max_disp)).to(mask.dtype)
+                else:
+                    preds = (preds,)
+                terms = [smooth_l1_terms(p.to(torch.promote_types(p.dtype, torch.float32)),
+                                         gt, mask) for p in preds]
+                den = terms[0][1]
+                if mesh is not None:
+                    den = all_reduce(mesh, den, axis)  # the global batch's valid pixels
+                den = torch.clamp(den, min=1.0)
+                if stack:
+                    loss = sum(wt * num / den for wt, (num, _) in zip(HEAD_WEIGHTS, terms))
+                else:
+                    loss = terms[0][0] / den
+            with span("train.backward"):
+                loss.backward()
+                sync_gradients(model.parameters(), mesh, axis, 1)
+            with span("train.optimizer"):
+                for group in opt.param_groups:
+                    group["lr"] = state.schedule(state.step)
+                opt.step()
         state.step += 1
         loss = loss.detach()
         if mesh is not None:

@@ -344,7 +344,7 @@ def _cmd_train_stereo(args):
 
     cfg = StereoTrainConfig(
         learning_rate=args.lr, num_epochs=args.epochs, batch_size=args.batch_size,
-        height=lefts.shape[1], width=lefts.shape[2], max_disp=args.max_disp)
+        height=lefts.shape[1], width=lefts.shape[2], max_disp=args.max_disp, arch=args.arch)
     _, state, last = train(cfg, lefts, rights, disp, mask, log_dir=args.log_dir,
                            seed=args.seed, device=args.device)
     print(f"trained {state.step} steps, final loss {last:.4f} -> {args.log_dir}/ckpt")
@@ -467,6 +467,9 @@ def main(argv=None):
     q.set_defaults(fn=_cmd_train_mono)
 
     q = sub.add_parser("train-stereo", help="PSMNet supervised training")
+    q.add_argument("--arch", default="psmnet_class", choices=("psmnet_class", "stackhourglass"),
+                   help="the PSMNet-class sibling, or the published stacked-hourglass PSMNet "
+                        "(H and W multiples of 16; published: --max-disp 192)")
     q.add_argument("--data", default="", help="dir with left/ right/ disp/")
     q.add_argument("--sim", type=int, default=0,
                    help="ray-cast N synthetic stereo pairs instead of --data")

@@ -1,12 +1,12 @@
 """Stereo pipeline, reference configuration 3 (port of
-`tpu3drec/pipelines/stereo.py`): stereo RGB -> PSMNet-class disparity ->
-depth -> fused point cloud + octomap export through
-`pipelines/rgbd.py::run_arrays`.
+`tpu3drec/pipelines/stereo.py`): stereo RGB -> PSMNet-class disparity (or, with
+``arch="stackhourglass"``, the published PSMNet's) -> depth -> fused point
+cloud + octomap export through `pipelines/rgbd.py::run_arrays`.
 
 Depth from disparity uses the reference's 0.1 m stereo baseline unless
 overridden. As in `pipelines/monocular.py`, the weights live in the
 module: `load_trained` returns the model and `run` takes one (or draws
-flax-style initial weights from seed 0).
+the architecture's initial weights from seed 0).
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from tpu3drec_torch.models.psmnet import PSMNet, disparity_to_depth, stereo_infer
+from tpu3drec_torch.models.psmnet import disparity_to_depth, stereo_infer
 from tpu3drec_torch.models.psmnet_training import (
     StereoTrainConfig,
+    build_stereo_model,
     init_stereo_state,
     iterate_stereo_batches,
     make_stereo_train_step,
     to_model,
 )
-from tpu3drec_torch.models.training import init_flax_params
 from tpu3drec_torch.pipelines import rgbd
 from tpu3drec_torch.utils.checkpoint import CheckpointManager
 from tpu3drec_torch.utils.config import RGBDPipelineConfig
@@ -40,6 +40,7 @@ class StereoPipelineConfig:
     max_disp: int = 64
     feat_ch: int = 32
     batch: int = 4
+    arch: str = "psmnet_class"      # or "stackhourglass" (`StereoTrainConfig.arch`)
 
 
 def train(
@@ -54,8 +55,8 @@ def train(
     seed: int = 0,
     device=None,
 ):
-    """Supervised PSMNet training (smooth-L1 on ground-truth disparity): the
-    epoch loop, checkpoints every 5 epochs and at the end, resume from the
+    """Supervised training of the net ``cfg.arch`` names (smooth-L1 on
+    ground-truth disparity): the epoch loop, checkpoints every 5 epochs and at the end, resume from the
     newest one, JSONL metrics. Returns (model, state, last loss)."""
     dev = resolve_device(device)
     model, state = init_stereo_state(seed, cfg, device=dev)
@@ -89,7 +90,7 @@ def train(
     return model, state, last_loss
 
 
-def infer_disparity(model: PSMNet, lefts: np.ndarray, rights: np.ndarray,
+def infer_disparity(model: torch.nn.Module, lefts: np.ndarray, rights: np.ndarray,
                     batch: int = 4) -> np.ndarray:
     """(F, H, W, 3) pairs -> (F, H', W') float32 disparity, in batches of
     ``batch`` on the model's device; the last batch is padded with zero
@@ -107,9 +108,9 @@ def infer_disparity(model: PSMNet, lefts: np.ndarray, rights: np.ndarray,
     return np.concatenate(out)
 
 
-def load_trained(log_dir: str, cfg: StereoTrainConfig, device=None) -> PSMNet:
-    """The PSMNet of a `train()` checkpoint directory's newest checkpoint,
-    on ``device``, ready for `run(..., model=...)`."""
+def load_trained(log_dir: str, cfg: StereoTrainConfig, device=None) -> torch.nn.Module:
+    """The net (``cfg.arch``) of a `train()` checkpoint directory's newest
+    checkpoint, on ``device``, ready for `run(..., model=...)`."""
     model, state = init_stereo_state(0, cfg, device=device)
     CheckpointManager(log_dir + "/ckpt").restore(state)
     return model
@@ -121,7 +122,7 @@ def run(
     rights: np.ndarray,
     q_xyzw: np.ndarray,           # (F, 4) COLMAP-convention poses
     t: np.ndarray,                # (F, 3)
-    model: PSMNet | None = None,  # a trained PSMNet, or None: initial weights
+    model: torch.nn.Module | None = None,  # a trained net, or None: initial weights of cfg.arch
     keep_points: bool = False,
     device=None,
 ):
@@ -129,9 +130,7 @@ def run(
     Returns `pipelines/rgbd.py::RGBDResult`."""
     dev = resolve_device(device)
     if model is None:
-        model = PSMNet(max_disp=cfg.max_disp, feat_ch=cfg.feat_ch)
-        init_flax_params(model, torch.Generator().manual_seed(0))
-        model.to(dev)
+        model = build_stereo_model(cfg, torch.Generator().manual_seed(0)).to(dev)
     disp = infer_disparity(model, lefts, rights, batch=cfg.batch)
     depth = disparity_to_depth(torch.as_tensor(disp), cfg.rgbd.camera.fx, cfg.baseline_m).numpy()
     return rgbd.run_arrays(depth, q_xyzw, t, cfg.rgbd, keep_points=keep_points, device=dev)
