@@ -6,6 +6,15 @@ The fused points agree bit for bit on the CPU (the port forms the same
 fused multiply-adds XLA does), so ASCII PLY, binary PLY and the voxel keys
 of the `.bt` are byte-identical. Estimated transforms (the `icp`
 subcommand) agree to 1e-4, as in tests/test_torch_icp.py.
+
+The copies back to the host (`pipelines/rgbd.py::_to_host`): an array a job
+returns is not overwritten by the next job, on the CPU and on a card, and
+``bytes_to_host_pinned`` counts what landed in page-locked memory (none on
+the CPU). On a card (marker `gpu`) the files and points equal those of a
+pageable ``x.cpu().numpy()`` copy, and a repeated job pins no new host
+memory. The card has neither JAX nor PIL: there the `gpu` tests run alone,
+as ``PYTHONPATH=. python -m pytest --noconftest -m gpu
+tests/test_torch_pipelines.py``.
 """
 
 import os
@@ -13,18 +22,24 @@ import os
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
-from tpu3drec.pipelines import cli as jcli
-from tpu3drec.pipelines import icp_fusion as jfusion
-from tpu3drec.pipelines import rgbd as jrgbd
-from tpu3drec.utils import config as jconfig
 from tpu3drec_torch.pipelines import cli as tcli
 from tpu3drec_torch.pipelines import icp_fusion as tfusion
 from tpu3drec_torch.pipelines import rgbd as trgbd
 from tpu3drec_torch.utils import config as tconfig
+from tpu3drec_torch.utils import tracing
 from tpu3drec_torch.utils.plyio import read_ply, write_ply
 from tpu3drec_torch.utils.poseio import PoseRecord, read_T_txt, write_pose_txt, write_T_txt
+
+try:  # on the CPU the port is held against the JAX package; the card has none
+    from PIL import Image
+
+    from tpu3drec.pipelines import cli as jcli
+    from tpu3drec.pipelines import icp_fusion as jfusion
+    from tpu3drec.pipelines import rgbd as jrgbd
+    from tpu3drec.utils import config as jconfig
+except ImportError:
+    Image = jcli = jfusion = jrgbd = jconfig = None
 
 torch.set_num_threads(2)
 F, H, W = 4, 48, 64
@@ -192,3 +207,102 @@ def test_cli_ply2bt_max_points(tmp_path):
                "--out", str(tmp_path / "t.bt")])
     jcli.main(["ply2bt", ply, "--res", "0.25", "--max-points", "200", "--out", str(tmp_path / "j.bt")])
     assert _bytes(str(tmp_path / "t.bt")) == _bytes(str(tmp_path / "j.bt"))
+
+
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)]
+
+
+def _device(name):
+    if name == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device(name)
+
+
+def _port_cfg(tmp_path, tag, binary=False, out_ply=True):
+    d = {"camera": {"fx": 60.0, "fy": 61.5, "cx": W / 2, "cy": H / 2, "width": W, "height": H},
+         "map": {"voxel_res": 0.25, "ply_binary": binary, "min_depth": 1e-3, "max_depth": 40.0}}
+    cfg = tconfig.from_dict(tconfig.RGBDPipelineConfig, d)
+    cfg.out_ply = str(tmp_path / f"{tag}.ply") if out_ply else ""
+    cfg.out_bt = str(tmp_path / f"{tag}.bt")
+    return cfg
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_kept_points_outlive_the_next_job(tmp_path, device):
+    """A job's kept points are its own: the next job, on other depths of the
+    same size, leaves them as they were."""
+    dev = _device(device)
+    first, second = _inputs(np.random.default_rng(6)), _inputs(np.random.default_rng(7))
+    cfg = _port_cfg(tmp_path, "t", out_ply=False)
+    res = trgbd.run_arrays(*first[:3], cfg, keep_points=True, device=dev)
+    before = res.points.copy()
+    nxt = trgbd.run_arrays(*second[:3], cfg, keep_points=True, device=dev)
+    np.testing.assert_array_equal(res.points, before)
+    assert not np.shares_memory(res.points, nxt.points)
+    assert not np.array_equal(res.points, nxt.points)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_map_copies_count_their_pinned_bytes(tmp_path, device):
+    """Every ``map.to_host`` span counts as pinned all its bytes on a card
+    and none on the CPU."""
+    dev = _device(device)
+    cfg = _port_cfg(tmp_path, "t")
+    tracing.drain()
+    tracing.enable()
+    try:
+        trgbd.run_arrays(*_inputs(np.random.default_rng(8))[:3], cfg, device=dev)
+    finally:
+        tracing.disable()
+    spans = [s for s in tracing.drain() if s.name == "map.to_host"]
+    assert len(spans) == 2
+    for s in spans:
+        assert s.counters["bytes_to_host"] > 0
+        want = s.counters["bytes_to_host"] if dev.type == "cuda" else 0
+        assert s.counters["bytes_to_host_pinned"] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("rgb", [False, True])
+def test_card_files_equal_pageable_copies(tmp_path, monkeypatch, binary, rgb):
+    """The points, PLY and `.bt` of a card's job equal those of the same job
+    whose copies back are plain pageable ``x.cpu().numpy()``."""
+    dev = _device("cuda")
+    depths, q, t, colors = _inputs(np.random.default_rng(9))
+    colors = colors if rgb else None
+    cfg = _port_cfg(tmp_path, "pinned", binary)
+    res = trgbd.run_arrays(depths, q, t, cfg, keep_points=True, colors=colors, device=dev)
+    ref_cfg = _port_cfg(tmp_path, "pageable", binary)
+    monkeypatch.setattr(trgbd, "_to_host", lambda x: x.cpu().numpy())
+    ref = trgbd.run_arrays(depths, q, t, ref_cfg, keep_points=True, colors=colors, device=dev)
+    assert (res.n_points, res.n_voxels) == (ref.n_points, ref.n_voxels)
+    np.testing.assert_array_equal(res.points, ref.points)
+    assert _bytes(cfg.out_ply) == _bytes(ref_cfg.out_ply)
+    assert _bytes(cfg.out_bt) == _bytes(ref_cfg.out_bt)
+
+
+@pytest.mark.gpu
+def test_repeated_job_pins_no_new_host_memory(tmp_path):
+    """After a first job, the same job again takes every page-locked block
+    from the caching host allocator's cache: no new host allocation. Jobs
+    whose kept points hold their blocks make the allocator pin new ones
+    once its cache of that size runs dry (which shows that the count moves
+    when a block is new), and no two of those points share memory."""
+    dev = _device("cuda")
+    depths, q, t, _ = _inputs(np.random.default_rng(10))
+    cfg = _port_cfg(tmp_path, "t")
+
+    def allocs():
+        return torch.cuda.host_memory_stats()["num_host_alloc"]
+
+    trgbd.run_arrays(depths, q, t, cfg, device=dev)
+    before = allocs()
+    res = trgbd.run_arrays(depths, q, t, cfg, device=dev)
+    assert res.n_points > 0 and allocs() == before
+    kept = []
+    while allocs() == before and len(kept) < 8:
+        kept.append(trgbd.run_arrays(depths, q, t, cfg, keep_points=True, device=dev).points)
+    assert allocs() > before
+    assert len({p.ctypes.data for p in kept}) == len(kept)
+    assert all(np.array_equal(p, kept[0]) for p in kept)

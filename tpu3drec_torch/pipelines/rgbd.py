@@ -16,8 +16,9 @@ an N-process PLY can hold up to N times ``max_points`` points, and process
 
 Program spans (`utils/tracing.py`) of `run_arrays`: the root ``map.job``;
 ``map.to_device`` and ``map.fuse`` (`core/unproject.py`); ``map.voxel``;
-``map.to_host``, the copies back, with the counter ``bytes_to_host``; and
-``map.write_bt``.
+``map.to_host``, the copies back, with the counters ``bytes_to_host`` and
+``bytes_to_host_pinned`` (those of them that landed in page-locked memory);
+and ``map.write_bt``.
 """
 
 from __future__ import annotations
@@ -114,8 +115,20 @@ def run_arrays(
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
     """A device tensor as a host array, its bytes counted (on the CPU too,
-    so that the count does not depend on the device)."""
-    out = x.cpu().numpy()
+    so that the count does not depend on the device).
+
+    From a CUDA device the bytes land in page-locked memory, which the copy
+    engine writes directly, from PyTorch's caching host allocator: the block
+    goes back to its cache when the last array viewing it is freed, so a
+    job of a size seen before pins nothing new. An array that outlives the
+    job (``RGBDResult.points``) keeps its block, which no later copy takes.
+    On the CPU the tensor's own memory is returned."""
+    if x.is_cuda:
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x).numpy()
+        count("bytes_to_host_pinned", out.nbytes)
+    else:
+        out = x.cpu().numpy()
+        count("bytes_to_host_pinned", 0)
     count("bytes_to_host", out.nbytes)
     return out
 
@@ -130,8 +143,7 @@ def _run_arrays(depths, q_xyzw, t, cfg, keep_points, colors, device) -> RGBDResu
         with span("map.voxel"):
             skeys, mask, n_unique = unique_voxels(voxelize(pts, cfg.map.voxel_res), valid)
         with span("map.to_host"):
-            n_voxels = int(n_unique)
-            count("bytes_to_host", n_unique.element_size())
+            n_voxels = int(_to_host(n_unique))
             keys = _to_host(skeys[mask])
         with span("map.write_bt"):
             n = write_bt_sharded(cfg.out_bt, keys, cfg.map.voxel_res)
