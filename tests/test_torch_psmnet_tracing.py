@@ -1,12 +1,16 @@
-"""Program spans and counters of the published PSMNet's training step
-(`models/psmnet_training.py::make_stereo_train_step` with
-``arch="stackhourglass"``, `models/psmnet.py::StackHourglassPSMNet`) on the
-CPU: the step's phase spans and the forward's ``psmnet.*`` spans under one
-``train.step`` root, ``psmnet.volume_bytes`` against the bytes the shapes
-give, nothing recorded with the tracer off, and the same operators (so the
-same launches and host reads) either way.
+"""Program spans and counters of every net's training step
+(`models/training.py::train_step_skeleton`) on the CPU: Monodepth2's
+(`make_train_step`, pose net), the PSMNet-class sibling's and the published
+PSMNet's (`models/psmnet_training.py::make_stereo_train_step`,
+``arch="stackhourglass"``, `models/psmnet.py::StackHourglassPSMNet`). Each
+step's phase spans under one ``train.step`` root, in order; for the
+published net also the forward's ``psmnet.*`` spans and
+``psmnet.volume_bytes`` against the bytes the shapes give; nothing recorded
+with the tracer off, and the same operators (so the same launches and host
+reads) either way.
 """
 
+import functools
 from collections import Counter
 
 import pytest
@@ -14,11 +18,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu3drec_torch.models import psmnet_training as tpt
+from tpu3drec_torch.models import training as tt
 from tpu3drec_torch.utils import tracing
 
 torch.set_num_threads(2)
 
 N, H, W, MAX_DISP, POOLS = 2, 32, 64, 16, (4, 2, 2, 1)
+NETS = ("monodepth2", "psmnet_class", "stackhourglass")
+PHASES = ["train.optimizer", "train.forward", "train.loss", "train.backward", "train.optimizer"]
 
 
 @pytest.fixture(autouse=True)
@@ -31,11 +38,19 @@ def tracer():
     tracing.drain()
 
 
-def _setup():
-    cfg = tpt.StereoTrainConfig(arch="stackhourglass", max_disp=MAX_DISP, spp_pools=POOLS,
+def _setup(net):
+    """(step(state, batch), state, batch) of ``net``: Monodepth2 with the
+    pose net and the automask noise drawn in the step, or a stereo arch."""
+    g = torch.Generator().manual_seed(2)
+    if net == "monodepth2":
+        cfg = tt.TrainConfig(height=H, width=W, batch_size=N)
+        _, state = tt.init_state(1, cfg, device="cpu")
+        batch = {k: torch.rand(N, H, W, 3, generator=g) for k in ("target", "prev", "next")}
+        step = functools.partial(tt.make_train_step(cfg), rng=torch.Generator().manual_seed(3))
+        return step, state, batch
+    cfg = tpt.StereoTrainConfig(arch=net, max_disp=MAX_DISP, spp_pools=POOLS, feat_ch=8,
                                 batch_size=N, height=H, width=W)
     _, state = tpt.init_stereo_state(1, cfg, device="cpu")
-    g = torch.Generator().manual_seed(2)
     batch = {"left": torch.rand(N, H, W, 3, generator=g),
              "right": torch.rand(N, H, W, 3, generator=g),
              "disp": torch.rand(N, H, W, generator=g) * 20, "mask": torch.ones(N, H, W)}
@@ -55,8 +70,9 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def test_step_spans_nest_under_one_root_and_count_the_volumes():
-    step, state, batch = _setup()
+@pytest.mark.parametrize("net", NETS)
+def test_step_spans_nest_under_one_root_and_count_the_volumes(net):
+    step, state, batch = _setup(net)
     tracing.enable()
     step(state, batch)
     spans = tracing.drain()
@@ -68,11 +84,14 @@ def test_step_spans_nest_under_one_root_and_count_the_volumes():
     for name in ("train.forward", "train.loss", "train.backward"):
         assert [s.parent for s in by[name]] == [root.id], name
     assert [s.parent for s in by["train.optimizer"]] == [root.id, root.id]
+    order = [s.name for s in sorted(spans, key=lambda s: s.t0)]
+    if net != "stackhourglass":
+        assert order == ["train.step"] + PHASES
+        return
     (fwd,) = by["train.forward"]
     for name in ("psmnet.features", "psmnet.cost_volume", "psmnet.regularize",
                  "psmnet.regress"):
         assert [s.parent for s in by[name]] == [fwd.id], name
-    order = [s.name for s in sorted(spans, key=lambda s: s.t0)]
     assert order == ["train.step", "train.optimizer", "train.forward", "psmnet.features",
                      "psmnet.cost_volume", "psmnet.regularize", "psmnet.regress", "train.loss",
                      "train.backward", "train.optimizer"]
@@ -84,8 +103,9 @@ def test_step_spans_nest_under_one_root_and_count_the_volumes():
         cost + 9 * full)
 
 
-def test_tracer_off_records_nothing_and_dispatches_the_same_operators():
-    step, state, batch = _setup()
+@pytest.mark.parametrize("net", NETS)
+def test_tracer_off_records_nothing_and_dispatches_the_same_operators(net):
+    step, state, batch = _setup(net)
     step(state, batch)  # first-call caches outside the comparison
     counted = {}
     for on in (False, True):

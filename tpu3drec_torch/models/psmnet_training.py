@@ -2,23 +2,18 @@
 supervised smooth-L1 on ground-truth disparity, one step = forward, loss
 over valid-disparity pixels, backward, Adam update.
 
-``StereoTrainConfig.arch`` picks the net: ``"psmnet_class"`` (the
-default), the PSMNet-class sibling that the JAX package has, flax's
-initialisers, one output; or ``"stackhourglass"``, the published PSMNet
-(`models/psmnet.py::StackHourglassPSMNet`), the published initialisation,
-and the published loss 0.5 L1 + 0.7 L2 + L3 over its three heads, each
-term over the pixels with ``mask`` and 0 <= disparity < ``max_disp``.
+``StereoTrainConfig.arch`` picks the net, its initialisation and its loss
+from `ARCHS`: ``"psmnet_class"`` (the default), the PSMNet-class sibling
+that the JAX package has, flax's initialisers, one output; or
+``"stackhourglass"``, the published PSMNet
+(`models/psmnet.py::StackHourglassPSMNet`), its initialisation and loss.
 
 As in `models/training.py`, the module holds the weights and batch
 statistics and ``torch.optim.Adam`` (optax's defaults) the moments:
-`init_stereo_state` returns (model, state), the step updates both in place,
-and `make_stereo_eval(model)` takes no parameter trees. The step runs in
-IEEE float32 (`core/fp.py::ieee_fp32`, no TF32); ``compute_dtype=
-"bfloat16"`` runs the net under bf16 autocast and the loss in float32.
-With a mesh the step is data-parallel over ``axis`` (as
-`models/training.py::make_train_step`): batch norms over the global batch,
-the loss the global batch's (its valid-pixel count all-reduced), the
-gradients all-reduced.
+`init_stereo_state` returns (model, state), the step
+(`models/training.py::train_step_skeleton`) updates both in place, and
+`make_stereo_eval(model)` takes no parameter trees. With a mesh the loss
+is the global batch's: its valid-pixel count is all-reduced.
 """
 
 from __future__ import annotations
@@ -32,12 +27,10 @@ from tpu3drec_torch.core import fp
 from tpu3drec_torch.models.psmnet import (
     SPP_POOLS, PSMNet, StackHourglassPSMNet, init_psmnet_params, smooth_l1_terms)
 from tpu3drec_torch.models.training import (
-    TrainState, autocast, data_parallel, init_flax_params, make_optimizer, sync_gradients)
+    TrainState, at_least_f32, init_flax_params, make_optimizer, train_step_skeleton)
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
-from tpu3drec_torch.utils.tracing import span
 
-ARCHS = ("psmnet_class", "stackhourglass")
 HEAD_WEIGHTS = (0.5, 0.7, 1.0)  # the published main.py's weights of the three heads
 
 
@@ -51,26 +44,50 @@ class StereoTrainConfig:
     max_disp: int = 64
     feat_ch: int = 32               # the sibling's width; the published net's are fixed
     compute_dtype: str = "float32"  # "bfloat16": the net under bf16 autocast
-    arch: str = "psmnet_class"      # or "stackhourglass", the published PSMNet
+    arch: str = "psmnet_class"      # a key of ARCHS
     # the stacked hourglass's SPP pools, in px at 1/4: published; only tests
     # and the benchmark's CPU-sized cell set smaller ones, for small inputs
     spp_pools: tuple = SPP_POOLS
 
 
+def _sibling_loss(cfg, pred, gt, mask, total):
+    """Smooth L1 over ``mask``."""
+    num, den = smooth_l1_terms(at_least_f32(pred), gt, mask)
+    return num / total(den)
+
+
+def _stack_loss(cfg, preds, gt, mask, total):
+    """main.py's 0.5 L1 + 0.7 L2 + L3 over ``mask`` and 0 <= disparity < max_disp."""
+    mask = mask * ((gt >= 0) & (gt < cfg.max_disp)).to(mask.dtype)
+    terms = [smooth_l1_terms(at_least_f32(p), gt, mask) for p in preds]
+    den = total(terms[0][1])
+    return sum(wt * num / den for wt, (num, _) in zip(HEAD_WEIGHTS, terms))
+
+
+# the nets by arch name: (net(cfg, spp_pools), init(net, generator), loss(cfg,
+# outputs, gt, mask, total)); total(den): the global batch's valid pixels, >= 1
+ARCHS = {
+    "psmnet_class": (lambda cfg, pools: PSMNet(max_disp=cfg.max_disp, feat_ch=cfg.feat_ch),
+                     init_flax_params, _sibling_loss),
+    "stackhourglass": (lambda cfg, pools: StackHourglassPSMNet(cfg.max_disp, tuple(pools)),
+                       init_psmnet_params, _stack_loss),
+}
+
+
+def _arch(name: str):
+    if name not in ARCHS:
+        raise ValueError(f"arch must be one of {tuple(ARCHS)}, not {name!r}")
+    return ARCHS[name]
+
+
 def build_stereo_model(cfg, generator: torch.Generator,
                        spp_pools=SPP_POOLS) -> torch.nn.Module:
-    """The net ``cfg.arch`` names (``cfg``: a `StereoTrainConfig` or
-    `pipelines/stereo.py::StereoPipelineConfig`), on the CPU, initialised
-    from ``generator``: flax's initialisers for the sibling, the published
-    ones for the stacked hourglass (with SPP pools ``spp_pools``)."""
-    if cfg.arch == "stackhourglass":
-        model = StackHourglassPSMNet(max_disp=cfg.max_disp, spp_pools=tuple(spp_pools))
-        init_psmnet_params(model, generator)
-    elif cfg.arch == "psmnet_class":
-        model = PSMNet(max_disp=cfg.max_disp, feat_ch=cfg.feat_ch)
-        init_flax_params(model, generator)
-    else:
-        raise ValueError(f"arch must be one of {ARCHS}, not {cfg.arch!r}")
+    """The net ``cfg.arch`` names in `ARCHS` (``cfg``: a `StereoTrainConfig`
+    or `pipelines/stereo.py::StereoPipelineConfig`), on the CPU, initialised
+    from ``generator`` (the stacked hourglass with SPP pools ``spp_pools``)."""
+    net, init, _ = _arch(cfg.arch)
+    model = net(cfg, spp_pools)
+    init(model, generator)
     return model
 
 
@@ -99,55 +116,22 @@ def make_stereo_train_step(cfg: StereoTrainConfig, mesh=None, axis: str = "data"
     """``train_step(state, batch) -> (state, loss)``: batch dict with
     "left"/"right" (N, H, W, 3) in [0, 1], "disp" (N, H, W) ground-truth
     disparity in pixels and "mask" (N, H, W) validity, as numpy arrays or
-    tensors. The loss is float32 whatever the net's compute dtype. With
-    ``mesh``, ``batch`` is this rank's shard of the global batch and the
-    loss returned is the global batch's. With the stacked hourglass the
-    loss weighs its three heads (`HEAD_WEIGHTS`) and keeps only pixels with
-    0 <= disparity < ``max_disp``."""
-    stack = cfg.arch == "stackhourglass"
+    tensors. The loss is float32 whatever the net's compute dtype, and the
+    one `ARCHS` gives ``cfg.arch``. With ``mesh``, ``batch`` is this rank's
+    shard of the global batch and the loss returned is the global batch's."""
+    *_, arch_loss = _arch(cfg.arch)
 
-    def train_step(state: TrainState, batch: dict):
-        with span("train.step"):
-            return step(state, batch)
+    def prepare(model, batch: dict) -> dict:
+        return {k: to_model(model, batch[k], image=k in ("left", "right"))
+                for k in ("left", "right", "disp", "mask")}
 
-    def step(state: TrainState, batch: dict):
-        model, opt = state.model, state.optimizer
-        left, right = (to_model(model, batch[k], image=True) for k in ("left", "right"))
-        gt, mask = (to_model(model, batch[k]) for k in ("disp", "mask"))
-        with fp.ieee_fp32():
-            with span("train.optimizer"):
-                opt.zero_grad(set_to_none=True)
-            with autocast(cfg, left.device), data_parallel(mesh, axis), span("train.forward"):
-                preds = model(left, right, train=True)
-            with span("train.loss"):
-                if stack:  # the published main.py: disp_true < maxdisp
-                    mask = mask * ((gt >= 0) & (gt < cfg.max_disp)).to(mask.dtype)
-                else:
-                    preds = (preds,)
-                terms = [smooth_l1_terms(p.to(torch.promote_types(p.dtype, torch.float32)),
-                                         gt, mask) for p in preds]
-                den = terms[0][1]
-                if mesh is not None:
-                    den = all_reduce(mesh, den, axis)  # the global batch's valid pixels
-                den = torch.clamp(den, min=1.0)
-                if stack:
-                    loss = sum(wt * num / den for wt, (num, _) in zip(HEAD_WEIGHTS, terms))
-                else:
-                    loss = terms[0][0] / den
-            with span("train.backward"):
-                loss.backward()
-                sync_gradients(model.parameters(), mesh, axis, 1)
-            with span("train.optimizer"):
-                for group in opt.param_groups:
-                    group["lr"] = state.schedule(state.step)
-                opt.step()
-        state.step += 1
-        loss = loss.detach()
-        if mesh is not None:
-            loss = all_reduce(mesh, loss, axis)
-        return state, loss
+    def total(den):  # the global batch's valid pixels
+        return torch.clamp(den if mesh is None else all_reduce(mesh, den, axis), min=1.0)
 
-    return train_step
+    step = train_step_skeleton(
+        cfg, mesh, axis, 1, prepare, lambda model, b: model(b["left"], b["right"], train=True),
+        lambda preds, b: (arch_loss(cfg, preds, b["disp"], b["mask"], total), {}))
+    return lambda state, batch: step(state, batch)[:2]  # (state, loss): no aux
 
 
 def make_stereo_eval(model: PSMNet):

@@ -19,8 +19,9 @@ on the card too (`core/fp.py::ieee_fp32`, no TF32), so the card agrees with
 a CPU run of the same code; ``"bfloat16"`` runs the nets under bf16
 autocast, and the loss in float32 either way.
 
-Program spans (`utils/tracing.py`) of a step: the root ``train.step``;
-``train.forward`` (the nets), ``train.loss`` (the rest of the loss),
+`train_step_skeleton` is every net's step (this module's and
+`models/psmnet_training.py`'s), in the program spans (`utils/tracing.py`):
+the root ``train.step``; ``train.forward`` (the nets), ``train.loss``,
 ``train.backward`` (autograd and the gradients' all-reduce) and
 ``train.optimizer`` (twice: the gradients' reset, then the learning rate
 and Adam's update).
@@ -144,8 +145,19 @@ def autocast(cfg, dev: torch.device):
     return torch.autocast(dev.type, dtype=torch.bfloat16)
 
 
-def _forward_loss(model: MonodepthModel, batch: dict, cfg: TrainConfig, noise=None):
-    """Loss for one batch of NHWC frames in [0, 1] on the model's device.
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least float32: the loss's dtype whatever the nets'."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _forward(model: MonodepthModel, batch: dict, cfg: TrainConfig):
+    """The nets: disparities by scale, and the poses of prev and next."""
+    return model.forward_train(batch["target"], batch["prev"], batch["next"],
+                               with_pose=not cfg.use_gt_pose)
+
+
+def _loss(outputs, batch: dict, cfg: TrainConfig, noise=None):
+    """(loss, aux) of `_forward`'s ``outputs`` on NHWC frames in [0, 1].
 
     batch keys: "target", "prev", "next"; with use_gt_pose also
     "gt_axisangle" (N, 2, 3) and "gt_translation" (N, 2, 3), rows [prev,
@@ -153,70 +165,94 @@ def _forward_loss(model: MonodepthModel, batch: dict, cfg: TrainConfig, noise=No
     (N,) in {-1, +1}. ``noise``: standard normal draws (sources, N, H, W)
     for the automask tiebreak (times 1e-5), or None for a constant.
     """
+    disps, pose_prev, pose_next = outputs
     target, prev, nxt = batch["target"], batch["prev"], batch["next"]
-    with autocast(cfg, target.device), span("train.forward"):
-        disps, pose_prev, pose_next = model.forward_train(
-            target, prev, nxt, with_pose=not cfg.use_gt_pose)
-    with span("train.loss"):
-        # loss math in (at least) f32 regardless of the nets' compute dtype
-        f32 = lambda x: x.to(torch.promote_types(x.dtype, torch.float32))  # noqa: E731
-        disps = {k: f32(v) for k, v in disps.items()}
+    disps = {k: at_least_f32(v) for k, v in disps.items()}
+    if cfg.use_gt_pose:
+        # the GT path: no inversion, rows [prev, next]
+        T_prev = transformation_from_parameters(batch["gt_axisangle"][:, 0],
+                                                batch["gt_translation"][:, 0])
+        T_next = transformation_from_parameters(batch["gt_axisangle"][:, 1],
+                                                batch["gt_translation"][:, 1])
+    else:
+        # invert for the negative frame id
+        T_prev = transformation_from_parameters(*map(at_least_f32, pose_prev), invert=True)
+        T_next = transformation_from_parameters(*map(at_least_f32, pose_next), invert=False)
 
-        if cfg.use_gt_pose:
-            # the GT path: no inversion, rows [prev, next]
-            T_prev = transformation_from_parameters(batch["gt_axisangle"][:, 0],
-                                                    batch["gt_translation"][:, 0])
-            T_next = transformation_from_parameters(batch["gt_axisangle"][:, 1],
-                                                    batch["gt_translation"][:, 1])
-        else:
-            # invert for the negative frame id
-            T_prev = transformation_from_parameters(*map(f32, pose_prev), invert=True)
-            T_next = transformation_from_parameters(*map(f32, pose_next), invert=False)
+    frame_Ts = [T_prev, T_next]
+    sources = [prev, nxt]
+    if cfg.use_stereo:
+        # constant stereo transform: identity R, the baseline along x with
+        # the sample's flip sign; the pose net never sees the stereo frame
+        N = target.shape[0]
+        T_s = torch.eye(4, dtype=target.dtype, device=target.device).repeat(N, 1, 1)
+        T_s[:, 0, 3] = batch["stereo_sign"].to(target.dtype) * cfg.stereo_baseline
+        frame_Ts.append(T_s)
+        sources.append(batch["stereo"])
 
-        frame_Ts = [T_prev, T_next]
-        sources = [prev, nxt]
-        if cfg.use_stereo:
-            # constant stereo transform: identity R, the baseline along x with
-            # the sample's flip sign; the pose net never sees the stereo frame
-            N = target.shape[0]
-            T_s = torch.eye(4, dtype=target.dtype, device=target.device).repeat(N, 1, 1)
-            T_s[:, 0, 3] = batch["stereo_sign"].to(target.dtype) * cfg.stereo_baseline
-            frame_Ts.append(T_s)
-            sources.append(batch["stereo"])
-
-        ident = None
-        if noise is not None:
-            ident = torch.as_tensor(noise, dtype=target.dtype, device=target.device) * 1e-5
-        return monodepth_loss(disps, frame_Ts, target, sources, cfg.loss, identity_noise=ident)
+    ident = None
+    if noise is not None:
+        ident = torch.as_tensor(noise, dtype=target.dtype, device=target.device) * 1e-5
+    return monodepth_loss(disps, frame_Ts, target, sources, cfg.loss, identity_noise=ident)
 
 
-def _batch_to_device(batch: dict, like: torch.Tensor) -> dict:
-    """numpy arrays or tensors -> tensors on the device and in the floating
-    dtype of ``like`` (a parameter of the model: float32, or float64 for a
-    ``.double()`` model)."""
-    return {k: torch.as_tensor(v, dtype=like.dtype, device=like.device) for k, v in batch.items()}
+def _forward_loss(model: MonodepthModel, batch: dict, cfg: TrainConfig, noise=None):
+    """`_forward` under autocast, then `_loss`: the step's loss alone."""
+    with autocast(cfg, batch["target"].device):
+        outputs = _forward(model, batch, cfg)
+    return _loss(outputs, batch, cfg, noise)
 
 
-def data_parallel(mesh, axis):
-    """The context of a data-parallel forward pass: batch norms over the
-    global batch with a mesh, nothing without one."""
-    return contextlib.nullcontext() if mesh is None else global_batch(mesh, axis)
+def train_step_skeleton(cfg, mesh, axis: str, shards: int, prepare: Callable,
+                        forward: Callable, loss_fn: Callable):
+    """Every net's training step, in the module docstring's spans:
+    ``step(state, *inputs, **named) -> (state, loss, aux)``, ``state`` a
+    `TrainState` updated in place. ``prepare(model, *inputs, **named) -> x``
+    puts the batch on the model's device; ``forward(model, x)`` runs the
+    net under ``cfg.compute_dtype`` and, with ``mesh``, batch norms over the
+    global batch; ``loss_fn(outputs, x) -> (loss, dict aux)``. With ``mesh``
+    the gradients, loss and aux are summed over ``axis`` and divided by
+    ``shards``: the shard count where each rank's loss is its shard's mean,
+    1 where it is already its share of the global batch's."""
 
+    def step(state: TrainState, *inputs, **named):
+        with span("train.step"):
+            model, opt = state.model, state.optimizer
+            x = prepare(model, *inputs, **named)
+            with fp.ieee_fp32():
+                with span("train.optimizer"):
+                    opt.zero_grad(set_to_none=True)
+                dev = next(model.parameters()).device
+                par = contextlib.nullcontext() if mesh is None else global_batch(mesh, axis)
+                with autocast(cfg, dev), par, span("train.forward"):
+                    outputs = forward(model, x)
+                with span("train.loss"):
+                    loss, aux = loss_fn(outputs, x)
+                with span("train.backward"):
+                    loss.backward()
+                    grads = [p.grad for p in model.parameters() if p.grad is not None]
+                    if mesh is not None and grads:  # in one all-reduce
+                        flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]),
+                                          axis) / shards
+                        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                            g.copy_(part.view_as(g))
+                with span("train.optimizer"):
+                    for group in opt.param_groups:
+                        group["lr"] = state.schedule(state.step)
+                    opt.step()
+            state.step += 1
+            loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+            if mesh is not None:
+                keys = list(aux)
+                vals = all_reduce(mesh, torch.stack([loss] + [aux[k] for k in keys]), axis) / shards
+                loss, aux = vals[0], dict(zip(keys, vals[1:]))
+        return state, loss, aux
 
-def sync_gradients(params, mesh, axis, shards: int) -> None:
-    """Sum every gradient over the ranks of ``axis`` in one all-reduce and
-    divide by ``shards``: with each rank's loss the mean over its shard,
-    that is the gradient of the global batch's mean."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if mesh is None or not grads:
-        return
-    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]), axis) / shards
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    return step
 
 
 def make_train_step(cfg: TrainConfig, mesh=None, axis: str = "data"):
-    """The training step: forward, loss, backward, Adam update.
+    """Monodepth's step (`train_step_skeleton`): forward, loss, backward, Adam.
 
     ``train_step(state, batch, rng=None, noise=None) -> (state, loss,
     aux)``. The automask tiebreak comes from ``noise`` (standard normal
@@ -231,43 +267,21 @@ def make_train_step(cfg: TrainConfig, mesh=None, axis: str = "data"):
     shards = 1 if mesh is None else mesh.axis_size(axis)
     index = 0 if mesh is None else mesh.axis_index(axis)
 
-    def train_step(state: TrainState, batch: dict, rng=None, noise=None):
-        with span("train.step"):
-            return step(state, batch, rng, noise)
-
-    def step(state, batch, rng, noise):
-        model, opt = state.model, state.optimizer
-        param = next(model.parameters())
-        dev = param.device
-        batch = _batch_to_device(batch, param)
-        n = batch["target"].shape[0]
+    def prepare(model, batch: dict, rng=None, noise=None):
+        param = next(model.parameters())  # its device, and float32 or float64
+        batch = {k: torch.as_tensor(v, dtype=param.dtype, device=param.device)
+                 for k, v in batch.items()}
+        n, h, w = batch["target"].shape[:3]
         if noise is None and rng is not None:
-            n_src = 3 if cfg.use_stereo else 2
-            noise = torch.randn((n_src, n * shards) + batch["target"].shape[1:-1],
-                                generator=rng, device=dev)
+            noise = torch.randn((3 if cfg.use_stereo else 2, n * shards, h, w),
+                                generator=rng, device=param.device)
         if noise is not None and mesh is not None:
             noise = noise[:, index * n:(index + 1) * n]
-        with fp.ieee_fp32():
-            with span("train.optimizer"):
-                opt.zero_grad(set_to_none=True)
-            with data_parallel(mesh, axis):
-                loss, aux = _forward_loss(model, batch, cfg, noise)
-            with span("train.backward"):
-                loss.backward()
-                sync_gradients(model.parameters(), mesh, axis, shards)
-            with span("train.optimizer"):
-                for group in opt.param_groups:
-                    group["lr"] = state.schedule(state.step)
-                opt.step()
-        state.step += 1
-        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
-        if mesh is not None:
-            keys = list(aux)
-            vals = all_reduce(mesh, torch.stack([loss] + [aux[k] for k in keys]), axis) / shards
-            loss, aux = vals[0], dict(zip(keys, vals[1:]))
-        return state, loss, aux
+        return batch, noise
 
-    return train_step
+    return train_step_skeleton(cfg, mesh, axis, shards, prepare,
+                               lambda model, x: _forward(model, x[0], cfg),
+                               lambda outputs, x: _loss(outputs, x[0], cfg, x[1]))
 
 
 def make_eval_depth(model: MonodepthModel, cfg: TrainConfig):

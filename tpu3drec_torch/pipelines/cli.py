@@ -466,8 +466,10 @@ def main(argv=None):
     q.add_argument("--log-dir", dest="log_dir", default="runs/monocular")
     q.set_defaults(fn=_cmd_train_mono)
 
+    from tpu3drec_torch.models.psmnet_training import ARCHS, StereoTrainConfig
+
     q = sub.add_parser("train-stereo", help="PSMNet supervised training")
-    q.add_argument("--arch", default="psmnet_class", choices=("psmnet_class", "stackhourglass"),
+    q.add_argument("--arch", default=StereoTrainConfig.arch, choices=tuple(ARCHS),
                    help="the PSMNet-class sibling, or the published stacked-hourglass PSMNet "
                         "(H and W multiples of 16; published: --max-disp 192)")
     q.add_argument("--data", default="", help="dir with left/ right/ disp/")

@@ -1,7 +1,8 @@
 """Stereo pipeline, reference configuration 3 (port of
-`tpu3drec/pipelines/stereo.py`): stereo RGB -> PSMNet-class disparity (or, with
-``arch="stackhourglass"``, the published PSMNet's) -> depth -> fused point
-cloud + octomap export through `pipelines/rgbd.py::run_arrays`.
+`tpu3drec/pipelines/stereo.py`): stereo RGB -> disparity from the net
+``arch`` names in `models/psmnet_training.py::ARCHS` (by default the
+PSMNet-class sibling) -> depth -> fused point cloud + octomap export
+through `pipelines/rgbd.py::run_arrays`.
 
 Depth from disparity uses the reference's 0.1 m stereo baseline unless
 overridden. As in `pipelines/monocular.py`, the weights live in the
@@ -40,7 +41,7 @@ class StereoPipelineConfig:
     max_disp: int = 64
     feat_ch: int = 32
     batch: int = 4
-    arch: str = "psmnet_class"      # or "stackhourglass" (`StereoTrainConfig.arch`)
+    arch: str = StereoTrainConfig.arch  # a key of `models/psmnet_training.py::ARCHS`
 
 
 def train(
