@@ -56,3 +56,32 @@ def ieee_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+# cuDNN's candidate algorithms timed for each convolution shape, in the
+# order its heuristics rank them (PyTorch's default is 10). Past the second,
+# timing costs more than it gains: on an H100, the published PSMNet's step
+# at batch 12 (float32) tunes in ~2.3 s with 2 and runs in ~1,380 ms; with
+# 3 the gradients of its 3D convolutions alone take ~45 s to time, with 10
+# the whole tuning ~122 s, for a step of ~1,335 ms (untuned: ~2,080 ms).
+AUTOTUNE_CANDIDATES = 2
+
+
+@contextlib.contextmanager
+def cudnn_autotune():
+    """cuDNN's autotuner in scope: the first convolution of each shape
+    times cuDNN's first `AUTOTUNE_CANDIDATES` algorithms and keeps the
+    fastest, for the forward and for autograd's gradients alike (the flags
+    are process-wide, so autograd's device thread reads them too). The
+    candidates compute the same convolution in the dtype and precision in
+    force: under `ieee_fp32`, IEEE float32 ones only. A shape keeps the
+    algorithm it first ran with, so one that first ran outside this scope
+    stays on cuDNN's heuristic pick. The previous settings come back on
+    exit."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.benchmark_limit
+    cudnn.benchmark, cudnn.benchmark_limit = True, AUTOTUNE_CANDIDATES
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved

@@ -24,7 +24,11 @@ autocast, and the loss in float32 either way.
 the root ``train.step``; ``train.forward`` (the nets), ``train.loss``,
 ``train.backward`` (autograd and the gradients' all-reduce) and
 ``train.optimizer`` (twice: the gradients' reset, then the learning rate
-and Adam's update).
+and Adam's update). From the gradients' reset to Adam's update the step
+runs under `core/fp.py::cudnn_autotune`, so cuDNN times its candidate
+algorithms for each convolution shape, forward and gradients, on the
+first step that meets it; ``train.step`` counts ``train.autotuned_steps``,
+1 for a step on a CUDA device and 0 elsewhere.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from tpu3drec_torch.models.monodepth import (
 from tpu3drec_torch.models.resnet import global_batch
 from tpu3drec_torch.parallel.mesh import all_reduce
 from tpu3drec_torch.utils.device import resolve_device
-from tpu3drec_torch.utils.tracing import span
+from tpu3drec_torch.utils.tracing import count, span
 
 
 @dataclass
@@ -218,11 +222,12 @@ def train_step_skeleton(cfg, mesh, axis: str, shards: int, prepare: Callable,
     def step(state: TrainState, *inputs, **named):
         with span("train.step"):
             model, opt = state.model, state.optimizer
+            dev = next(model.parameters()).device
             x = prepare(model, *inputs, **named)
-            with fp.ieee_fp32():
+            with fp.ieee_fp32(), fp.cudnn_autotune():
+                count("train.autotuned_steps", int(dev.type == "cuda"))
                 with span("train.optimizer"):
                     opt.zero_grad(set_to_none=True)
-                dev = next(model.parameters()).device
                 par = contextlib.nullcontext() if mesh is None else global_batch(mesh, axis)
                 with autocast(cfg, dev), par, span("train.forward"):
                     outputs = forward(model, x)
